@@ -8,11 +8,21 @@ fixed joints, egocentric observations, a 30-ray lidar per agent,
 Threefry stream on reset.
 
 The step is the same taskgraph: er_reset -> er_actions -> er_doors ->
-physics_step -> er_post. Its physics configuration is fixed here: the
-JAX env's values, with the broadphase on its kernel tier, the plain
-tensor narrowphase and no substep-solver kernel. The device picks the
-route: on CUDA the broadphase and the lidar run their hand-written
-kernels; on a CPU tensor their wrappers run the plain versions.
+physics_step -> er_post. Its physics configuration is fixed here, the
+one the JAX env runs on an accelerator, under the port's tier names:
+
+  JAX package                     port
+  broadphase="pallas"             broadphase="kernel"
+  narrowphase="pallas_mega"       narrowphase="kernel_mega"
+  megakernel=True                 megakernel=True
+  (lidar_pallas.lidar_obb)        ops.lidar_cuda.lidar_obb
+
+The config names the kernel tiers on every device and the tensor's
+device picks the route inside each wrapper: on CUDA the broadphase, the
+contacts, the substep solver and the lidar launch their hand-written
+kernels or raise; on a CPU tensor the wrappers run the plain versions.
+The JAX package's hull-hull-only tiers ("pallas_sublane", "pallas") have
+no counterpart yet.
 
 Axis convention: z up, +y is hallway depth ("forward"), x is width.
 """
@@ -120,9 +130,12 @@ class EscapeRoom(EnvBase):
             dt=DT, substeps=SUBSTEPS, gravity=(0.0, 0.0, -9.8),
             jacobi_iters=1,             # one position pass per substep
             narrowphase_once=True,      # contacts once per step
-            narrowphase="xla",          # plain tensor narrowphase
-            megakernel=False,
+            narrowphase="kernel_mega",  # contacts on the CUDA kernel
+            megakernel=True,            # all substeps in the solver kernel
             broadphase="kernel",        # all-pairs on the CUDA kernel
+            # rows 0..12 (floor, walls, separators, doors) are always
+            # static; contact lanes >= 8 are the hull-plane segment, whose
+            # ref row is the static floor
             solver_dynamic_range=(ROW_CUBE0, N_BODIES),
             solver_ref_dyn_lanes=8,
         )

@@ -32,12 +32,15 @@ BASE_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
-# Neither kernel may contract a*b+c into an FMA: each must repeat its
-# plain PyTorch version's rounding (the broadphase feeds integer outputs
-# through <= comparisons). No --use_fast_math: it approximates division.
+# No kernel may contract a*b+c into an FMA: each must repeat its plain
+# PyTorch version's rounding (the broadphase and the contacts feed integer
+# outputs through comparisons). No --use_fast_math: it approximates
+# division and square roots.
 SOURCE_FLAGS = {
     "broadphase.cu": ["--fmad=false"],
     "lidar.cu": ["--fmad=false"],
+    "contacts.cu": ["--fmad=false"],
+    "solver.cu": ["--fmad=false"],
 }
 
 

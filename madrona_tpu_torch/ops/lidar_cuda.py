@@ -44,6 +44,11 @@ def lidar_obb(inst_pos, inst_rot, inst_half, self_mask, origins, dirs,
     if inst_pos.device.type == "cpu":
         return lidar_obb_plain(inst_pos, inst_rot, inst_half, self_mask,
                                origins, dirs, t_max)
+    return _launch(inst_pos, inst_rot, inst_half, self_mask, origins, dirs,
+                   t_max)
+
+
+def _launch(inst_pos, inst_rot, inst_half, self_mask, origins, dirs, t_max):
     w, n_inst = inst_pos.shape[:2]
     n_agents, n_rays = dirs.shape[1], dirs.shape[2]
     f32 = torch.float32

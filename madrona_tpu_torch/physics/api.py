@@ -1,16 +1,24 @@
 """PhysicsSystem: registration and the physics taskgraph node.
 
-Port of ``madrona_tpu/physics/api.py`` on the branch the Escape Room
-takes: broadphase once per step (plain or on its CUDA kernel), contacts
-once per step at the first substep's predicted poses
-(``narrowphase_once``) from the plain tensor narrowphase, then every
-substep as integrate -> Jacobi position solve -> joints ->
-set_velocities -> Jacobi velocity solve.
+Port of ``madrona_tpu/physics/api.py`` on the branches the Escape Room
+takes. Broadphase once per step on its kernel wrapper. Then one of:
 
-The contacts and substep-solver kernels (``narrowphase="pallas_mega"``,
-``megakernel=True``), the fused step, TGS, the Gauss-Seidel oracle and
-the collision-event export come with later slices; selecting them
-raises ``NotImplementedError``.
+  * ``narrowphase="kernel_mega"`` (the JAX package's ``"pallas_mega"``):
+    predicted poses from ``xpbd.integrate``, the contacts kernel
+    (``ops/contacts_cuda``), and every substep in the substep-solver
+    kernel (``ops/solver_cuda``) fed by the contacts kernel's buffers;
+  * ``narrowphase="xla"`` with ``megakernel=True``: contacts once per
+    step from the plain tensor narrowphase, packed for the
+    substep-solver kernel;
+  * ``narrowphase="xla"`` alone: the plain tensor narrowphase (once per
+    step under ``narrowphase_once``, else per substep) and every substep
+    as integrate -> Jacobi position solve -> joints -> set_velocities ->
+    Jacobi velocity solve in tensor ops.
+
+Each kernel wrapper runs its plain version on a CPU tensor. The fused
+step, TGS, the Gauss-Seidel oracle, the hull-hull-only narrowphase
+kernels and the collision-event export come with later slices; selecting
+them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,12 +38,14 @@ from . import geo
 from . import joints as _joints
 from . import narrowphase as np_
 from . import xpbd
+from ..ops import contacts_cuda, solver_cuda
 from ..ops.broadphase_cuda import find_candidates_kernel
 from .bodies import ObjectManager
-from .xpbd import BodyState, Contacts, PhysicsConfig, gather_rows
+from .xpbd import BodyState, Contacts, PhysicsConfig
 
 RIGID_BODY = "RigidBody"
 JOINT_BUFFER = "JointBuffer"
+COLLISION_EVENTS = "CollisionEvents"   # the export itself is not ported
 
 _F32 = ((3,), torch.float32)
 
@@ -130,66 +140,14 @@ def write_back(sm: StateManager, state: SimState, body: BodyState
 def _narrowphase_all(body: BodyState, om: ObjectManager,
                      cands: bp.Candidates) -> Contacts:
     """Contacts of the candidate buffers in the fixed layout
-    [hull-hull | hull-plane] (one lane per candidate slot, all worlds
-    flattened into the batch axis). Sentinel rows read row N-1 and are
-    masked out by ``pair[0] < n``."""
+    [hull-hull | hull-plane] from the plain tensor narrowphase."""
     if cands.sp.shape[1]:
         raise NotImplementedError(
             "sphere narrowphase lanes come with a later slice; set "
             "CandidateCaps.sphere_any=0"
         )
-    w, n = body.pos.shape[:2]
-    dims = om.hull_dims
-    nb = torch.cat([body.pos, body.rot, body.scale], dim=-1)   # [W, N, 10]
-
-    def lanes(pairs, side):
-        """Per-lane (pos, rot, scale, object id) of one pair side."""
-        rows = pairs[..., side]
-        blk = gather_rows(nb, rows).reshape(-1, 10)
-        oid = gather_rows(body.obj_id, rows).reshape(-1).long()
-        return blk[:, 0:3], blk[:, 3:7], blk[:, 7:10], oid
-
-    def hull(lane, need_edges=True, dirs=False):
-        p, q, s, oid = lane
-        return np_.hull_row_to_world(
-            om.hull_pack[oid], dims, p, q, s, need_edges=need_edges,
-            dirs_row=om.hull_dirs_pack[oid] if dirs else None,
-            n_dirs=om.n_edge_dirs if dirs else 0,
-        )
-
-    def emit(c, first, second, pairs):
-        """(ref, alt, points, num, normal) in [W, P, ...] layout."""
-        p = pairs.shape[1]
-        ok = c["valid"] & (pairs[..., 0].reshape(-1) < n)
-        sent = torch.full_like(first, n)
-        pts = torch.cat([c["points"], c["depths"][..., None]], dim=-1)
-        return (
-            torch.where(ok, first, sent).reshape(w, p).to(torch.int32),
-            torch.where(ok, second, sent).reshape(w, p).to(torch.int32),
-            pts.reshape(w, p, 4, 4),
-            torch.where(ok, c["num"], 0).reshape(w, p).to(torch.int32),
-            c["normal"].reshape(w, p, 3),
-        )
-
-    hh_pairs = cands.hh
-    a = hull(lanes(hh_pairs, 0), dirs=True)
-    b = hull(lanes(hh_pairs, 1), dirs=True)
-    c = np_.hull_hull_contact(a, b)
-    pa = hh_pairs[..., 0].reshape(-1).long()
-    pb = hh_pairs[..., 1].reshape(-1).long()
-    hh = emit(c, torch.where(c["ref_is_a"], pa, pb),
-              torch.where(c["ref_is_a"], pb, pa), hh_pairs)
-
-    hp_pairs = cands.hp
-    h = hull(lanes(hp_pairs, 0), need_edges=False)
-    pp, qp, _, _ = lanes(hp_pairs, 1)
-    c = np_.hull_plane_contact(h, pp, qp)
-    # the plane (second row) is the reference
-    hp = emit(c, hp_pairs[..., 1].reshape(-1).long(),
-              hp_pairs[..., 0].reshape(-1).long(), hp_pairs)
-
-    ref, alt, points, num, normal = (
-        torch.cat([x, y], dim=1) for x, y in zip(hh, hp)
+    ref, alt, points, num, normal = np_.narrowphase_lanes(
+        body.pos, body.rot, body.scale, body.obj_id, om, cands.hh, cands.hp
     )
     return Contacts(
         ref=ref, alt=alt, points=points, num=num, normal=normal,
@@ -198,19 +156,37 @@ def _narrowphase_all(body: BodyState, om: ObjectManager,
     )
 
 
-def _check_supported(cfg: PhysicsConfig, om: ObjectManager,
-                     caps: bp.CandidateCaps):
+def _check_supported(sm: StateManager, cfg: PhysicsConfig,
+                     om: ObjectManager, caps: bp.CandidateCaps):
     later = []
-    if cfg.narrowphase != "xla":
+    if cfg.narrowphase not in ("xla", "kernel_mega"):
         later.append(f"narrowphase={cfg.narrowphase!r}")
-    if cfg.megakernel:
-        later.append("megakernel=True")
     if cfg.broadphase != "kernel":
         later.append(f"broadphase={cfg.broadphase!r}")
     if later:
         raise NotImplementedError(
             "not ported yet: " + ", ".join(later)
         )
+    if cfg.megakernel and not cfg.narrowphase_once:
+        raise ValueError(
+            "PhysicsConfig.megakernel requires narrowphase_once=True"
+        )
+    if cfg.narrowphase == "kernel_mega":
+        if not (cfg.narrowphase_once and cfg.megakernel):
+            raise ValueError(
+                "narrowphase='kernel_mega' requires narrowphase_once=True "
+                "and megakernel=True"
+            )
+        if caps.sphere_any != 0:
+            raise ValueError(
+                "narrowphase='kernel_mega' covers hull-hull and hull-plane "
+                "lanes only; set CandidateCaps.sphere_any=0"
+            )
+        if COLLISION_EVENTS in sm.singletons:
+            raise NotImplementedError(
+                "the CollisionEvents export needs W-major Contacts, which "
+                "narrowphase='kernel_mega' never builds; it is not ported"
+            )
     if cfg.solver_ref_dyn_lanes:
         # an env-layout contract (every contact lane >= K has a static
         # ref row): validate the parts visible at setup
@@ -237,9 +213,18 @@ def make_physics_node(sm: StateManager, om: ObjectManager,
     and every XPBD substep. ``om`` is built on the CPU; a copy is kept
     per device the node runs on."""
     caps = caps or bp.CandidateCaps()
-    _check_supported(cfg, om, caps)
+    _check_supported(sm, cfg, om, caps)
     h = cfg.dt / cfg.substeps
     om_on = {}
+
+    def megakernel_substeps(body, om_d, cargs, jbuf):
+        """Every substep in one call of the substep-solver kernel, on
+        contact buffers already in its layout."""
+        state, param = solver_cuda.pack_state(body, om_d)
+        jargs = (solver_cuda.pack_joints(jbuf, body.pos.shape[1])
+                 if jbuf is not None else ())
+        out = solver_cuda.substep_solver(cfg, state, param, *cargs, *jargs)
+        return solver_cuda.unpack_out(body, out)
 
     def physics_step(sm_, state: SimState, node_key) -> SimState:
         body = body_state(sm_, state)
@@ -250,10 +235,26 @@ def make_physics_node(sm: StateManager, om: ObjectManager,
         cands = find_candidates_kernel(body, om_d, caps, cfg.dt)
         jbuf = joints_view(state) if JOINT_BUFFER in sm_.singletons else None
 
+        if cfg.narrowphase == "kernel_mega":
+            # contacts kernel at the predicted poses, feeding the
+            # substep-solver kernel its buffers as they stand
+            pred = xpbd.integrate(body, om_d, h, cfg.gravity)
+            poses, obj = contacts_cuda.pack_poses(pred, body.obj_id)
+            cargs = contacts_cuda.contacts(cands.hh, cands.hp, poses, obj,
+                                           om_d)
+            return write_back(
+                sm_, state, megakernel_substeps(body, om_d, cargs, jbuf)
+            )
+
         frozen = None
         if cfg.narrowphase_once:
             frozen = _narrowphase_all(
                 xpbd.integrate(body, om_d, h, cfg.gravity), om_d, cands
+            )
+        if cfg.megakernel:
+            cargs = solver_cuda.pack_contacts(frozen)
+            return write_back(
+                sm_, state, megakernel_substeps(body, om_d, cargs, jbuf)
             )
         for _ in range(cfg.substeps):
             body = xpbd.integrate(body, om_d, h, cfg.gravity)

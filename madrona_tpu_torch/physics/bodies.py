@@ -7,8 +7,10 @@ numpy in the same slot order as the JAX package's, so they are equal
 byte for byte. Per-body lookups are index gathers; the JAX package's
 one-hot einsums exist only for the TPU.
 
-``hull_pack_planar`` (read only by the Pallas contact kernels) comes
-with the contacts kernel.
+The contacts kernel (``csrc/contacts.cu``) reads ``hull_pack`` and
+``hull_dirs_pack`` as they are, copied to shared memory; the JAX
+package's ``hull_pack_planar``, a component-planar copy for the TPU's
+tiling, has no counterpart here.
 """
 
 from __future__ import annotations

@@ -21,6 +21,7 @@ from .xpbd import (
     _gather_packed,
     _pure,
     _scatter_avg_packed,
+    const_f32,
     pack_bodies,
 )
 
@@ -122,8 +123,8 @@ def solve_joints_jacobi(body: BodyState, joints: Joints, om,
     )
     delta_r = (m3.quat_rotate(fq2, r2) + x2) - (m3.quat_rotate(fq1, r1) + x1)
     axes_rot = m3.quat_normalize(m3.quat_mul(fq1, joints.attach_q1))
-    fwd = torch.tensor(_FWD, dtype=x1.dtype, device=x1.device)
-    right = torch.tensor(_RIGHT, dtype=x1.dtype, device=x1.device)
+    fwd = const_f32(_FWD, x1.device)
+    right = const_f32(_RIGHT, x1.device)
     a1 = m3.quat_rotate(axes_rot, torch.broadcast_to(fwd, axes_rot[..., 1:].shape))
     b1_axis = m3.quat_rotate(
         axes_rot, torch.broadcast_to(right, axes_rot[..., 1:].shape)

@@ -32,6 +32,7 @@ from typing import Optional
 import torch
 
 from ..utils import math3d as m3
+from .xpbd import gather_rows
 
 NEG_BIG = -3.0e38
 BIG = 3.0e38
@@ -100,7 +101,13 @@ def hull_row_to_world(row, dims, pos, rot, scale, need_edges: bool = True,
     # plane d from the face's first polygon vertex (always live)
     d_w = m3.dot(n_w, face_polys[:, :, 0, :])
     denom = torch.clamp(vm.sum(dim=1), min=1)
-    center = torch.where(vm[..., None], verts, 0.0).sum(dim=1) / denom[:, None]
+    # summed vertex by vertex, in index order: the contacts kernel repeats
+    # this order (a reduction's order is the library's to choose)
+    live_verts = torch.where(vm[..., None], verts, 0.0)
+    center = live_verts[:, 0]
+    for i in range(1, v):
+        center = center + live_verts[:, i]
+    center = center / denom[:, None]
     dirs_kw = {}
     if dirs_row is not None and n_dirs:
         d = n_dirs
@@ -278,7 +285,9 @@ def query_edge_directions_dirs(a: HullW, b: HullW):
     len2 = m3.dot(ax, ax)
     ok = (a.edge_dirs_mask[:, :, None] & b.edge_dirs_mask[:, None, :]
           & (len2 > 1e-12))
-    n = ax * torch.rsqrt(torch.clamp(len2, min=1e-30))[..., None]
+    # 1 / sqrt, both correctly rounded: the contacts kernel repeats it
+    # bit for bit, which an approximate rsqrt would not promise
+    n = ax * (1.0 / torch.sqrt(torch.clamp(len2, min=1e-30)))[..., None]
     c_ab = b.center - a.center
     flip = torch.where(m3.dot(n, c_ab[:, None, None, :]) < 0.0, -1.0, 1.0)
     n = n * flip[..., None]
@@ -404,3 +413,63 @@ def hull_plane_contact(h: HullW, plane_pos, plane_rot):
         valid=valid, points=pts4, depths=dep4,
         num=torch.where(valid, npts, 0), normal=n,
     )
+
+
+def narrowphase_lanes(pos, rot, scale, obj_id, om, hh_pairs, hp_pairs):
+    """Contacts of candidate pair buffers, in the fixed lane layout
+    [hull-hull | hull-plane]: one lane per candidate slot, all worlds
+    flattened into the batch axis of the functions above.
+
+    pos/rot/scale [W, N, 3|4|3], obj_id [W, N]; hh_pairs [W, PH, 2],
+    hp_pairs [W, PP, 2] (hull row, plane row). Returns (ref, alt [W, C]
+    int32, points [W, C, 4, 4], num [W, C] int32, normal [W, C, 3]) with
+    C = PH + PP. Sentinel rows read row N-1 and are masked out by
+    ``pair[0] < n``."""
+    w, n = pos.shape[:2]
+    dims = om.hull_dims
+    nb = torch.cat([pos, rot, scale], dim=-1)                  # [W, N, 10]
+
+    def lanes(pairs, side):
+        """Per-lane (pos, rot, scale, object id) of one pair side."""
+        rows = pairs[..., side]
+        blk = gather_rows(nb, rows).reshape(-1, 10)
+        oid = gather_rows(obj_id, rows).reshape(-1).long()
+        return blk[:, 0:3], blk[:, 3:7], blk[:, 7:10], oid
+
+    def hull(lane, need_edges=True, dirs=False):
+        p, q, s, oid = lane
+        return hull_row_to_world(
+            om.hull_pack[oid], dims, p, q, s, need_edges=need_edges,
+            dirs_row=om.hull_dirs_pack[oid] if dirs else None,
+            n_dirs=om.n_edge_dirs if dirs else 0,
+        )
+
+    def emit(c, first, second, pairs):
+        """(ref, alt, points, num, normal) in [W, P, ...] layout."""
+        p = pairs.shape[1]
+        ok = c["valid"] & (pairs[..., 0].reshape(-1) < n)
+        sent = torch.full_like(first, n)
+        pts = torch.cat([c["points"], c["depths"][..., None]], dim=-1)
+        return (
+            torch.where(ok, first, sent).reshape(w, p).to(torch.int32),
+            torch.where(ok, second, sent).reshape(w, p).to(torch.int32),
+            pts.reshape(w, p, 4, 4),
+            torch.where(ok, c["num"], 0).reshape(w, p).to(torch.int32),
+            c["normal"].reshape(w, p, 3),
+        )
+
+    a = hull(lanes(hh_pairs, 0), dirs=True)
+    b = hull(lanes(hh_pairs, 1), dirs=True)
+    c = hull_hull_contact(a, b)
+    pa = hh_pairs[..., 0].reshape(-1).long()
+    pb = hh_pairs[..., 1].reshape(-1).long()
+    hh = emit(c, torch.where(c["ref_is_a"], pa, pb),
+              torch.where(c["ref_is_a"], pb, pa), hh_pairs)
+
+    h = hull(lanes(hp_pairs, 0), need_edges=False)
+    pp, qp, _, _ = lanes(hp_pairs, 1)
+    c = hull_plane_contact(h, pp, qp)
+    # the plane (second row) is the reference
+    hp = emit(c, hp_pairs[..., 1].reshape(-1).long(),
+              hp_pairs[..., 0].reshape(-1).long(), hp_pairs)
+    return tuple(torch.cat([x, y], dim=1) for x, y in zip(hh, hp))

@@ -19,6 +19,7 @@ the TGS solver come with the configurations that select them.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -36,12 +37,16 @@ class PhysicsConfig:
     restitution_threshold: float = 0.2
     jacobi_iters: int = 2           # Jacobi position iterations per substep
     # "xla": contacts from the plain tensor narrowphase (the name is the
-    # JAX package's; the contacts kernel comes in a later slice)
+    # JAX package's). "kernel_mega": hull-hull SAT, the hull-plane lane
+    # and the manifold reduction on the contacts kernel
+    # (ops/contacts_cuda; the JAX package's "pallas_mega"), feeding the
+    # substep-solver kernel without a W-major Contacts buffer
     narrowphase: str = "xla"
     # True: contacts generated once per step at the first substep's
     # predicted poses and reused across substeps
     narrowphase_once: bool = False
-    # True selects the substep-solver kernel (a later slice)
+    # True: every substep of a step in one call of the substep-solver
+    # kernel (ops/solver_cuda); needs narrowphase_once
     megakernel: bool = False
     # env layout contracts read by the substep-solver kernel; validated
     # at setup (see api.make_physics_node)
@@ -87,12 +92,20 @@ class Contacts:
     lambda_n: torch.Tensor   # [W, C] accumulated normal impulse
 
 
+@functools.lru_cache(maxsize=None)
+def const_f32(values: tuple, device) -> torch.Tensor:
+    """A small float32 constant on ``device``, built once and reused: a
+    fresh ``torch.tensor`` per call is a pageable host-to-device copy
+    that stalls the host on the card."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
 def integrate(body: BodyState, om, h: float, gravity, params=None
               ) -> BodyState:
     """substepRigidBodies: save the previous pose, apply gravity and the
     external force, integrate velocity -> position, the gyroscopic omega
     update and the quaternion update (xpbd.cpp:98-185)."""
-    g = torch.tensor(gravity, dtype=torch.float32, device=body.pos.device)
+    g = const_f32(tuple(gravity), body.pos.device)
     params = params if params is not None else om.obj_params(body.obj_id)
     inv_m = params["inv_m"]
     inv_i = params["inv_i"]
@@ -338,12 +351,19 @@ def _avg_contacts_batch(points, num):
     return avg, max_pen, zero
 
 
-def solve_positions_jacobi(body: BodyState, contacts: Contacts, om,
-                           iters: int = 2, params=None):
-    """Vectorized position solve: every contact at once, averaged."""
-    ref, alt = contacts.ref, contacts.alt
+def _reduced(contacts: Contacts):
+    """(average point, largest penetration, ok) of each manifold."""
     avg, max_pen, zero = _avg_contacts_batch(contacts.points, contacts.num)
-    ok = (contacts.num > 0) & (~zero)
+    return avg, max_pen, (contacts.num > 0) & (~zero)
+
+
+def solve_positions_jacobi(body: BodyState, contacts: Contacts, om,
+                           iters: int = 2, params=None, reduced=None):
+    """Vectorized position solve: every contact at once, averaged.
+    ``reduced``: the manifolds' (average point, largest penetration, ok)
+    where the caller already holds them."""
+    ref, alt = contacts.ref, contacts.alt
+    avg, max_pen, ok = reduced if reduced is not None else _reduced(contacts)
     nrm = contacts.normal
     lam_total = torch.zeros_like(contacts.lambda_n)
     n = body.pos.shape[1]
@@ -381,8 +401,8 @@ def solve_positions_jacobi(body: BodyState, contacts: Contacts, om,
 
 def solve_velocities_jacobi(body: BodyState, contacts: Contacts, om,
                             h: float, restitution: float,
-                            restitution_threshold: float, params=None
-                            ) -> BodyState:
+                            restitution_threshold: float, params=None,
+                            reduced=None) -> BodyState:
     """Vectorized velocity solve: restitution on the averaged contact,
     then dynamic friction per manifold point, averaged per body."""
     ref, alt = contacts.ref, contacts.alt
@@ -397,8 +417,7 @@ def solve_velocities_jacobi(body: BodyState, contacts: Contacts, om,
     b2 = _gather_packed(packed, alt)
     mu_d = 0.5 * (b1["mu_d"] + b2["mu_d"])
 
-    avg, max_pen, zero = _avg_contacts_batch(pts, num)
-    ok = (num > 0) & (~zero)
+    avg, max_pen, ok = reduced if reduced is not None else _reduced(contacts)
 
     r1, r2 = _local_contacts(b1, b2, avg, max_pen, nrm)
     r1_pre = m3.quat_rotate(b1["presolve_q"], r1)

@@ -2,7 +2,8 @@
 
 madrona_tpu_torch and chip_smoke.py run on machines without JAX: no
 module of theirs may import jax or anything of the JAX package
-(madrona_tpu), not even a numpy-only module. Checked by parsing every
+(madrona_tpu), not even a numpy-only module; nor triton, which no kernel
+of the port uses and the CPU machines lack. Checked by parsing every
 source file, and by importing the package in a fresh interpreter."""
 
 import ast
@@ -16,7 +17,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 SOURCES = sorted((ROOT / "madrona_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"
 ]
-FORBIDDEN = ("jax", "jaxlib", "madrona_tpu")
+FORBIDDEN = ("jax", "jaxlib", "madrona_tpu", "triton")
 
 
 def _imported_roots(path):
@@ -41,7 +42,9 @@ def test_package_import_leaves_jax_out():
     code = (
         "import sys; import madrona_tpu_torch; "
         "import madrona_tpu_torch.models.escape_room, "
-        "madrona_tpu_torch.interop, madrona_tpu_torch.ops.broadphase_cuda; "
+        "madrona_tpu_torch.interop, madrona_tpu_torch.ops.broadphase_cuda, "
+        "madrona_tpu_torch.ops.contacts_cuda, "
+        "madrona_tpu_torch.ops.solver_cuda; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]; "
         "print(bad); sys.exit(1 if bad else 0)"

@@ -10,7 +10,19 @@ import numpy as np
 import torch
 
 from madrona_tpu_torch.interop import state_from_numpy
+from madrona_tpu_torch.models import escape_room as t_er
+from madrona_tpu_torch.physics import api as t_api
 from madrona_tpu_torch.physics import xpbd as t_xpbd
+
+# (name, first row, last row, tolerance) of the substep solver's 33 output
+# fields: the JAX package's golden bounds (tests/golden_inputs.py:484-492)
+SOLVER_FIELDS = (
+    ("pos", 0, 3, 1e-3), ("rot", 3, 7, 1e-3),
+    ("vel", 7, 10, 5e-2), ("omega", 10, 13, 2e-1),
+    ("prev_x", 13, 16, 1e-3), ("prev_q", 16, 20, 1e-3),
+    ("presolve_x", 20, 23, 1e-3), ("presolve_q", 23, 27, 1e-3),
+    ("presolve_v", 27, 30, 5e-2), ("presolve_w", 30, 33, 2e-1),
+)
 
 
 def jax_tree(x):
@@ -88,3 +100,32 @@ def sorted_live_points(points, num):
         (pts[..., 3], pts[..., 2], pts[..., 1], pts[..., 0]), axis=-1
     )
     return np.take_along_axis(pts, order[..., None], axis=1)
+
+
+def with_grab_joints(state):
+    """An Escape Room SimState (CPU) with grab joints on: a fixed joint
+    (agent 0 holds cube 0) in the even worlds, a hinge (agent 1, cube 1)
+    in world 1."""
+    jb = {k: v.clone()
+          for k, v in state.singletons[t_api.JOINT_BUFFER].items()}
+    f32 = lambda *v: torch.tensor(v, dtype=torch.float32)   # noqa: E731
+    even = slice(0, jb["e1"].shape[0], 2)
+    jb["e1"][even, 0] = t_er.ROW_AGENT0
+    jb["e2"][even, 0] = t_er.ROW_CUBE0
+    jb["jtype"][even, 0] = 0
+    jb["r1"][even, 0] = f32(0.0, 0.6, 0.0)
+    jb["r2"][even, 0] = f32(0.0, -0.6, 0.0)
+    jb["attach_q1"][even, 0] = f32(1.0, 0.0, 0.0, 0.0)
+    jb["attach_q2"][even, 0] = f32(1.0, 0.0, 0.0, 0.0)
+    jb["active"][even, 0] = True
+    jb["e1"][1, 1] = t_er.ROW_AGENT0 + 1
+    jb["e2"][1, 1] = t_er.ROW_CUBE0 + 1
+    jb["jtype"][1, 1] = 1
+    jb["r1"][1, 1] = f32(0.0, 0.5, 0.1)
+    jb["r2"][1, 1] = f32(0.0, -0.5, 0.0)
+    jb["a1_local"][1, 1] = f32(0.0, 0.0, 1.0)
+    jb["a2_local"][1, 1] = f32(0.0, 0.1, 1.0)
+    jb["active"][1, 1] = True
+    singles = dict(state.singletons)
+    singles[t_api.JOINT_BUFFER] = jb
+    return dataclasses.replace(state, singletons=singles)
