@@ -5,7 +5,7 @@
 
 Phases, each printing its own lines:
   1. the card (nvidia-smi name and power limit) and the kernel build
-     (one nvcc per csrc/*.cu source, all four started together);
+     (one nvcc per csrc/*.cu source, all five started together);
   2. the broadphase kernel against its plain PyTorch version at 4096
      worlds, on random scenes (caps-saturating ones included) and on a
      real Escape Room body state: every field exactly equal;
@@ -28,7 +28,26 @@ Phases, each printing its own lines:
   7. the same env at 8 worlds on the card against the port's CPU path;
      and, with the kernels' libraries and the compiler taken away, a step
      on the card raises (no fallback to the plain versions);
-  8. per-kernel times (CUDA events) beside their bounds, as one JSON line.
+  8. the raycast kernel against its plain version: on a real Hide & Seek
+     state at 1024 worlds x 4 views x 64 x 64 rays (flat colours, as the
+     dense render tier runs it) and on synthetic planes with the shadow,
+     light and material options at 256 views: all eight planes within
+     RAY_TOL (expected: equal);
+  9. the broadphase, contacts and solver kernels against their plain
+     versions on an arranged Hide & Seek state at 16,384 worlds (ramp
+     wedges in contact, 4 joint slots, a locked box in half the worlds),
+     with phase 2, 4 and 5's tolerances;
+ 10. Hide & Seek's two launches: make_sim(HideSeek(render_size=64), 1024
+     worlds) through ("step", "render"), and make_sim(HideSeek(pixels=
+     False), 16,384 worlds) through ("step",), 20 steps of seeded random
+     actions each: exports finite and of the expected shapes, broadphase,
+     contacts, solver (and raycast) launched once per step each and the
+     lidar not at all, a fresh sim bit-identical, ms per node, env-steps/s;
+ 11. Hide & Seek at 8 worlds on the card against the port's CPU path: int
+     exports equal, float exports within SMALL_TOL, pixels differing by
+     more than PIX_TOL at under PIX_FRAC of the pixels; and, with the
+     raycast library and the compiler taken away, a render step raises;
+ 12. per-kernel times (CUDA events) beside their bounds, as one JSON line.
 
 Any failure raises (non-zero exit). The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -59,6 +78,12 @@ LIDAR_TOL = 1e-5          # kernel vs plain version
 CON_TOL = 1e-4            # normal, average point, largest penetration
 PTS_TOL = 1e-3            # manifold points, compared unordered
 POSE_TOL, VEL_TOL, OMEGA_TOL = 1e-3, 5e-2, 2e-1
+HS_W = 1024               # Hide & Seek with pixels (render_size 64)
+HS_STATE_W = 16384        # Hide & Seek state only: the repo's bench count
+HS_RENDER = 64
+RAY_TOL = 1e-5            # raycast kernel vs plain version, every plane
+RAY_SYN_WV = 256          # views of the synthetic option-set planes
+PIX_TOL, PIX_FRAC = 0.02, 0.002   # card vs CPU: rgb / depth per pixel
 TIMING_ITERS = 200
 PLAIN_PHYSICS_ITERS = 3   # the plain contacts/solver take ~0.1 s a call
 
@@ -98,6 +123,17 @@ SOLVER_OPS_CONTACT_POS = 700
 SOLVER_OPS_CONTACT_VEL = 350
 SOLVER_OPS_POINT = 450
 SOLVER_OPS_JOINT = 900
+# raycast (csrc/raycast.cu). Per (ray, triangle) primary test ~30 (three
+# 3-term dot products 15, abs, sign folds 2, division, t, six compares
+# and their ands, the running minimum); the shadow test ~28 more where on
+# (three dot products 15, three affine terms 6, add, five compares and
+# ands). Per ray ~40 (16 attribute reads, shade 6, compose and sky select
+# 9, eight plane writes), ~90 more with materials (uv 8, texel addresses
+# ~40, 12 taps and their weights 36).
+RAY_OPS_PAIR = 30
+RAY_OPS_PAIR_SHADOW = 28
+RAY_OPS_RAY = 40
+RAY_OPS_RAY_MATERIALS = 90
 
 
 def card_line() -> str:
@@ -109,11 +145,11 @@ def card_line() -> str:
     return out.stdout.strip()
 
 
-def timed(fn, iters=TIMING_ITERS):
+def timed(fn, iters=TIMING_ITERS, warmup=5):
     """Mean ms of fn() over iters launches (CUDA events, after warm-up)."""
     import torch
 
-    for _ in range(5):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -380,7 +416,8 @@ def check_contacts(name, args, om, n_hh, want_face_and_edge):
         "hp_live": int((num[n_hh:] > 0).sum()),
         "ok": int(ok.sum()),
     }
-    print(f"contacts kernel vs plain [{name}]: W={W} ref/alt/num equal; "
+    print(f"contacts kernel vs plain [{name}]: W={num.shape[1]} "
+          "ref/alt/num equal; "
           f"con max_abs_diff={con_err!r} pts max_abs_diff={pts_err!r}; "
           + " ".join(f"{k}={v}" for k, v in counts.items()))
     if not con_err <= CON_TOL:
@@ -415,7 +452,7 @@ def check_solver(name, cfg, state, param, cargs, jargs):
               ("presolve_w", 30, 33, OMEGA_TOL))
     diffs = {f: float((got[lo:hi] - ref[lo:hi]).abs().max())
              for f, lo, hi, _ in fields}
-    print(f"solver kernel vs plain [{name}]: W={W} max_abs_diff "
+    print(f"solver kernel vs plain [{name}]: W={got.shape[2]} max_abs_diff "
           + " ".join(f"{k}={v:.3g}" for k, v in diffs.items()))
     # how heavy the tail is: worlds where some field is off by more than a
     # tenth of its tolerance (a contact branch taken the other way)
@@ -423,7 +460,7 @@ def check_solver(name, cfg, state, param, cargs, jargs):
         (got[lo:hi] - ref[lo:hi]).abs().amax(dim=(0, 1)) / tol
         for _, lo, hi, tol in fields]).amax(dim=0)
     print(f"solver kernel vs plain [{name}]: {int((rel > 0.1).sum())} of "
-          f"{W} worlds differ by more than a tenth of a tolerance")
+          f"{got.shape[2]} worlds differ by more than a tenth of a tolerance")
     for f, _, _, tol in fields:
         if not diffs[f] <= tol:
             raise AssertionError(f"solver {name}: {f} {diffs[f]} > {tol}")
@@ -501,10 +538,11 @@ def physics_route(body, om, env, jargs):
     return solver_cuda.substep_solver(cfg, state, param, *cargs, *jargs)
 
 
-def check_no_fallback(make_sim, EscapeRoom, kernels):
-    """With every kernel's library unloaded, missing on disk and no
-    compiler to be found, a step on the card must raise: it may not go
-    on with the plain versions."""
+def check_no_fallback(sim, kernels, launch=None):
+    """With the library of every kernel in ``kernels`` unloaded, missing
+    on disk and no compiler to be found, a step of ``sim`` (on the card)
+    over ``launch`` must raise: it may not go on with the plain
+    versions."""
     import torch
     from madrona_tpu_torch.ops import cuda_build
 
@@ -513,7 +551,8 @@ def check_no_fallback(make_sim, EscapeRoom, kernels):
 
     saved = (cuda_build._nvcc, cuda_build.library_path,
              [k._fn for k in kernels])
-    sim = make_sim(EscapeRoom(), num_worlds=SMALL_W, seed=0, device=DEV)
+    w = sim.executor.num_worlds
+    what = f"{sim.env.name} {launch or sim.env.default_launch}"
     try:
         cuda_build._nvcc = no_nvcc
         cuda_build.library_path = (
@@ -521,28 +560,32 @@ def check_no_fallback(make_sim, EscapeRoom, kernels):
         for k in kernels:
             k._fn = None
         try:
-            sim.step({"action": torch.zeros((SMALL_W, 2, 4),
+            sim.step({"action": torch.zeros((w,) + sim.env.action_shape,
                                             dtype=torch.int32, device=DEV),
-                      "reset": torch.zeros((SMALL_W,), dtype=torch.int32,
-                                           device=DEV)})
+                      "reset": torch.zeros((w,), dtype=torch.int32,
+                                           device=DEV)}, launch=launch)
         except RuntimeError as e:
-            print(f"no fallback: without its kernels the step raises ({e})")
+            print(f"no fallback [{what}]: without "
+                  f"{', '.join(k.source for k in kernels)} the step raises "
+                  f"({e})")
         else:
-            raise AssertionError("the step ran without its kernels")
+            raise AssertionError(f"{what} ran without its kernels")
     finally:
         cuda_build._nvcc, cuda_build.library_path = saved[:2]
         for k, fn in zip(kernels, saved[2]):
             k._fn = fn
 
 
-def run_main_path(make_sim, EscapeRoom, acts, counters):
-    """Phase 6: step a fresh sim with every counter of ``counters`` set to
+def run_main_path(make_sim, make_env, acts, counters, w=None):
+    """A main path: step a fresh sim of ``make_env()`` at ``w`` worlds
+    through its default launch, with every counter of ``counters`` set to
     0 first; returns (sim, per-step exports, seconds of steps 2..STEPS,
     the counters' launches in this run)."""
     import torch
 
-    sim = make_sim(EscapeRoom(), num_worlds=W, seed=0, device=DEV)
-    reset = torch.zeros((W,), dtype=torch.int32, device=DEV)
+    w = W if w is None else w
+    sim = make_sim(make_env(), num_worlds=w, seed=0, device=DEV)
+    reset = torch.zeros((w,), dtype=torch.int32, device=DEV)
     for k in counters:
         k.launches = 0
     outs = []
@@ -564,7 +607,8 @@ def node_times(sim, acts, steps=5):
     dispatch plus whatever device work it waits on)."""
     import torch
 
-    nodes = sim.executor.graphs["step"].nodes
+    nodes = [n for g in sim.env.default_launch
+             for n in sim.executor.graphs[g].nodes]
     totals = {n.name: 0.0 for n in nodes}
 
     def fenced(name, fn):
@@ -581,13 +625,293 @@ def node_times(sim, acts, steps=5):
     try:
         for n in nodes:
             n.fn = fenced(n.name, n.fn)
-        reset = torch.zeros((W,), dtype=torch.int32, device=DEV)
+        reset = torch.zeros((sim.executor.num_worlds,), dtype=torch.int32,
+                            device=DEV)
         for i in range(steps):
             sim.step({"action": acts[i], "reset": reset})
     finally:
         for n, fn in zip(nodes, saved):
             n.fn = fn
     return {k: v / steps for k, v in totals.items()}
+
+
+def arrange_hide_seek(sim):
+    """The sim's Hide & Seek state arranged so that the physics kernels
+    see what the env can give them: a box on a ramp's low end, an agent
+    on a ramp's slope, an agent against a ramp's triangular side, a box
+    against a wall (each with a little seeded jitter); box 0 locked (a
+    static row inside the solver's dynamic range) in the even worlds;
+    seeker 0 holding box 2 by a fixed joint in slot 2 of every fourth
+    world, the other slots inactive with e1 = e2 = -1; random kicks."""
+    import dataclasses
+
+    import torch
+    from madrona_tpu_torch.models import hide_seek as hs
+    from madrona_tpu_torch.physics import api as papi
+    from madrona_tpu_torch.physics import xpbd
+
+    state = sim.state
+    w = sim.executor.num_worlds
+    rs = np.random.RandomState(31)
+    dev_t = lambda a: torch.from_numpy(                      # noqa: E731
+        np.asarray(a, np.float32)).to(sim.device)
+    t = state.tables[hs.RIGID_BODY]
+    c = dict(t.columns)
+    pos, rot = c["Position"].clone(), c["Rotation"].clone()
+    place = {
+        hs.ROW_RAMP0: (0.0, 0.0, 0.0), hs.ROW_RAMP0 + 1: (6.0, 0.0, 0.0),
+        hs.ROW_BOX0: (1.5, 0.2, 0.9), hs.ROW_BOX0 + 1: (-19.15, 3.0, 0.9),
+        hs.ROW_BOX0 + 2: (-18.0, -16.6, 0.9),
+        hs.ROW_AGENT0: (6.3, 0.0, 1.1), hs.ROW_AGENT0 + 1: (-0.5, 1.45, 0.8),
+        hs.ROW_AGENT0 + 2: (-18.0, -18.0, 0.8),
+        hs.ROW_AGENT0 + 3: (10.0, 10.0, 0.8),
+    }
+    for row, xyz in place.items():
+        jit = rs.uniform(-0.05, 0.05, (w, 3)) * [1.0, 1.0, 0.0]
+        pos[:, row] = dev_t(np.asarray(xyz) + jit)
+    yaw = rs.uniform(-0.3, 0.3, (w, hs.N_MOVABLE))
+    zero = np.zeros_like(yaw)
+    rot[:, hs.ROW_BOX0:hs.ROW_BOX0 + hs.N_MOVABLE] = dev_t(np.stack(
+        [np.cos(yaw / 2), zero, zero, np.sin(yaw / 2)], -1))
+    rot[:, hs.ROW_AGENT0 + 2] = dev_t([1.0, 0.0, 0.0, 0.0])
+    dyn = (np.arange(hs.N_BODIES) >= hs.ROW_BOX0)[None, :, None]
+    kick = lambda sc: dev_t(                                 # noqa: E731
+        sc * rs.randn(w, hs.N_BODIES, 3) * dyn)
+    resp = c["ResponseType"].clone()
+    resp[0::2, hs.ROW_BOX0] = xpbd.RESPONSE_STATIC
+    c.update(Position=pos, Rotation=rot, ResponseType=resp,
+             Velocity={"linear": kick(0.5), "angular": kick(0.3)},
+             ExternalForce=kick(1.0))
+    tables = dict(state.tables)
+    tables[hs.RIGID_BODY] = dataclasses.replace(t, columns=c)
+    singles = dict(state.singletons)
+    jb = {k: v.clone() for k, v in singles[papi.JOINT_BUFFER].items()}
+    jb["e1"][:] = -1
+    jb["e2"][:] = -1
+    jb["active"][:] = False
+    fourth = slice(0, w, 4)
+    jb["e1"][fourth, 2] = hs.ROW_AGENT0 + 2
+    jb["e2"][fourth, 2] = hs.ROW_BOX0 + 2
+    jb["jtype"][:] = 0
+    jb["r1"][fourth, 2] = dev_t([0.0, 0.7, 0.1])
+    jb["r2"][fourth, 2] = dev_t([0.0, -0.7, 0.0])
+    jb["attach_q1"][..., 0] = 1.0
+    jb["attach_q2"][..., 0] = 1.0
+    jb["active"][fourth, 2] = True
+    singles[papi.JOINT_BUFFER] = jb
+    return dataclasses.replace(state, tables=tables, singletons=singles)
+
+
+def check_hide_seek_physics(sim):
+    """Phase 9: B1, B2 and B3 against their plain versions on the
+    arranged Hide & Seek state. Returns (largest differences of the
+    three, what the timing phase needs)."""
+    import torch
+    from madrona_tpu_torch.models import hide_seek as hs
+    from madrona_tpu_torch.ops import broadphase_cuda, solver_cuda
+    from madrona_tpu_torch.physics import api as papi
+    from madrona_tpu_torch.physics import broadphase as bp
+
+    env, cfg = sim.env, sim.env.cfg
+    om = env.om.to(DEV)
+    state = arrange_hide_seek(sim)
+    body = papi.body_state(sim.executor.sm, state)
+    w = body.pos.shape[0]
+
+    got = broadphase_cuda.find_candidates_kernel(body, om, env.caps, cfg.dt)
+    ref = bp.find_candidates(body, om, env.caps, cfg.dt)
+    torch.cuda.synchronize()
+    for f in ("hh", "hh_num", "hp", "hp_num", "sp", "sp_num", "sp_kind",
+              "overflow"):
+        if not torch.equal(getattr(got, f), getattr(ref, f)):
+            raise AssertionError(f"broadphase hide_seek: field {f} differs")
+    n_locked = int((body.response[:, hs.ROW_BOX0] == 2).sum())
+    print(f"broadphase kernel == plain [hide_seek]: W={w} "
+          f"hh={int(got.hh_num.sum())} hp={int(got.hp_num.sum())} "
+          f"overflow_worlds={int(got.overflow.sum())} "
+          f"locked_boxes={n_locked}")
+    if int(got.hh_num.sum()) < 3 * w or int(got.overflow.sum()):
+        raise AssertionError("broadphase hide_seek: scene not as arranged")
+
+    c_args = contacts_inputs(body, om, env.caps, cfg)
+    c_out, co_err, counts = check_contacts("hide_seek", c_args, om,
+                                           env.caps.hull_hull, False)
+    if counts["hh_live"] < 2 * w:
+        raise AssertionError("contacts hide_seek: too few live wedge lanes")
+    st, pr = solver_cuda.pack_state(body, om)
+    jargs = solver_cuda.pack_joints(papi.joints_view(state), hs.N_BODIES)
+    so_err = check_solver("hide_seek + joint", cfg, st, pr, c_out, jargs)
+    n_joints = int((jargs[2][21] > 0.5).sum())
+    print(f"solver scenes: hide_seek has {n_joints} live joints in {w} "
+          f"worlds, {4 * w - n_joints} inactive slots")
+    return (0.0, co_err, so_err), dict(
+        body=body, om=om, c_args=c_args, c_out=c_out, state=st, param=pr,
+        jargs=jargs)
+
+
+def raycast_compare(name, planes, opts):
+    """The raycast kernel against its plain version on one set of
+    planes. Returns (largest difference over all planes, kernel out)."""
+    import torch
+    from madrona_tpu_torch.ops import raycast_cuda as rck
+
+    got = rck.raytrace(*planes, **opts)
+    ref = rck.raytrace_plain(*planes, **opts)
+    torch.cuda.synchronize()
+    if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"raycast {name}: bad shape or not finite")
+    d = (got - ref).abs().amax(dim=(0, 2)).tolist()
+    hits = float((ref[:, rck.O_T] < opts["t_max"]).float().mean())
+    n_diff = int(((got - ref).abs() > RAY_TOL).any(dim=1).sum())
+    print(f"raycast kernel vs plain [{name}]: WV={got.shape[0]} "
+          f"T_pad={planes[0].shape[1]} R_pad={got.shape[2]} max_abs_diff "
+          f"rgb={max(d[0:3])!r} depth={d[3]!r} occ={d[4]!r} "
+          f"uv={max(d[5:7])!r}; hit share {hits:.3f}, occluded share "
+          f"{float(ref[:, rck.O_OCC].mean()):.3f}, rays differing {n_diff}")
+    if not max(d) <= RAY_TOL:
+        raise AssertionError(f"raycast {name}: {max(d)} > {RAY_TOL}")
+    return max(d), got
+
+
+def synthetic_ray_planes(rs, wv, t_pad, r_pad, tex, device):
+    """Random raycast inputs (setup, attrs, dl, atlas) on ``device`` with
+    exact ties, disabled shadow rows and dead rows; the CPU tests make
+    theirs with this function too. The last four rows are padding."""
+    import torch
+    from madrona_tpu_torch.ops import raycast_cuda as rck
+    from madrona_tpu_torch.render import kernel as rkernel
+    from madrona_tpu_torch.render.raycast import RenderConfig
+
+    t = t_pad - 4
+    setup = np.zeros((wv, t_pad, rck.PS), np.float32)
+    setup[:, :t] = rs.randn(wv, t, rck.PS)
+    setup[:, :t, 9] *= 20.0
+    setup[:, :t, 22] = 6.0 * np.abs(setup[:, :t, 22])
+    setup[:, :t, 23] = 2e-2 * setup[:, :t, 22]
+    setup[:, 3:t:7, 22:24] = 0.0
+    setup[:, 20:26] = setup[:, 8:14]
+    setup[:, 30] = 0.0
+    attrs = np.zeros((wv, rck.FA, t_pad), np.float32)
+    attrs[:, :, :t] = rs.rand(wv, rck.FA, t)
+    attrs[:, rck.A_TEX, :t] = rs.randint(-1, 2, (wv, t))
+    attrs[:, rck.A_UV0X:rck.A_DU2Y + 1, :t] = rs.uniform(-2, 2, (wv, 6, t))
+    attrs[:, 15] = 0.0
+    side = int(round(r_pad ** 0.5))
+    dl, _ = rkernel._local_dir_grid(RenderConfig(width=side, height=side))
+    atlas = rs.rand(3 * tex, 2 * tex).astype(np.float32)
+    return tuple(torch.from_numpy(x).to(device)
+                 for x in (setup, attrs, dl, atlas))
+
+
+def check_raycast(sim):
+    """Phase 8. Returns (largest difference, the real scene's planes and
+    options for the timing phase)."""
+    from madrona_tpu_torch.render import kernel as rkernel
+
+    env = sim.env
+    planes, opts, n_rays = rkernel.kernel_inputs(
+        env.rcfg, *env.rsys.render_inputs(sim.state))
+    if opts["shadows"] or opts["use_lights"] or opts["use_materials"]:
+        raise AssertionError("the dense tier runs flat colours")
+    if planes[0].shape[0] != HS_W * 4 or n_rays != HS_RENDER ** 2:
+        raise AssertionError(f"raycast shapes {planes[0].shape}, {n_rays}")
+    worst, _ = raycast_compare("hide_seek flat", planes, opts)
+    rs = np.random.RandomState(41)
+    tex = 8
+    for i, (name, sh, li, ma) in enumerate((
+            ("shadows", True, False, False),
+            ("lights+shadows", True, True, False),
+            ("materials+lights", False, True, True),
+            ("materials+shadows", True, False, True))):
+        syn = synthetic_ray_planes(rs, RAY_SYN_WV, planes[0].shape[1],
+                                   planes[2].shape[1], tex, DEV)
+        o = dict(t_max=50.0, shadows=sh, use_lights=li, use_materials=ma,
+                 ambient=0.35, shadow_ambient=0.3, sky=(0.1, 0.2, 0.4),
+                 tex_size=tex)
+        worst = max(worst, raycast_compare(f"synthetic {name}", syn, o)[0])
+    return worst, (planes, opts, n_rays)
+
+
+def check_exports(outs, shapes, what):
+    """Every float export of every step finite; the last step's shapes."""
+    import torch
+
+    for i, out in enumerate(outs):
+        for name, v in out.items():
+            if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"{what} step {i}: {name} not finite")
+    for name, shape in shapes.items():
+        if tuple(outs[-1][name].shape) != shape:
+            raise AssertionError(
+                f"{what}: {name} shape {tuple(outs[-1][name].shape)}")
+
+
+def hide_seek_path(make_sim, make_env, w, counters, want, what, shapes, card):
+    """Phase 10 for one launch: the counted run, its checks, a fresh
+    sim's bit-identical rerun, ms by node. Returns (sim, per-step
+    exports, env-steps/s, ms/step, launches)."""
+    import torch
+
+    acts = make_env().random_actions(np.random.RandomState(0), STEPS, w)
+    acts = acts.to(DEV)
+    sim, outs, secs, launches = run_main_path(make_sim, make_env, acts,
+                                              counters, w)
+    for k, n, must in zip(counters, launches, want):
+        print(f"{what}: {k.symbol} launched {n} times in {STEPS} steps")
+        if n != must:
+            raise AssertionError(f"{what}: {k.symbol} {n} launches != {must}")
+    check_exports(outs, shapes, what)
+    sps = w * (STEPS - 1) / secs
+    ms = secs * 1e3 / (STEPS - 1)
+    print(f"{what}: {w} worlds x {STEPS} steps through "
+          f"{sim.env.default_launch}, exports finite; {ms:.2f} ms/step, "
+          f"{sps:.1f} env-steps/s ({card})")
+    _, outs2, _, _ = run_main_path(make_sim, make_env, acts, [], w)
+    for i, (a, b) in enumerate(zip(outs, outs2)):
+        for name in a:
+            if not torch.equal(a[name], b[name]):
+                raise AssertionError(f"{what} step {i}: {name} differs "
+                                     "across fresh sims")
+    print(f"{what}: a fresh sim with the same seed is bit-identical")
+    per_node = node_times(sim, acts)
+    print(f"{what}, ms/step by node (synchronized): " + ", ".join(
+        f"{k} {v * 1e3:.2f}" for k, v in per_node.items()) + f" ({card})")
+    return sim, outs, sps, ms, launches
+
+
+def check_hide_seek_small(make_sim, HideSeek):
+    """Phase 11: 8 worlds on the card against the port's CPU path."""
+    import torch
+
+    acts = HideSeek.random_actions(np.random.RandomState(5), SMALL_STEPS,
+                                   SMALL_W)
+    sims = {d: make_sim(HideSeek(render_size=16), num_worlds=SMALL_W, seed=3,
+                        device=d) for d in ("cpu", DEV)}
+    worst, worst_frac = 0.0, 0.0
+    for i in range(SMALL_STEPS):
+        o = {d: s.step({"action": acts[i].to(d),
+                        "reset": torch.zeros(SMALL_W, dtype=torch.int32,
+                                             device=d)})
+             for d, s in sims.items()}
+        for name, g in o[DEV].items():
+            c, g = o["cpu"][name], g.cpu()
+            if name in ("rgb", "depth"):
+                bad = (g - c).abs() > PIX_TOL
+                worst_frac = max(worst_frac, float(bad.float().mean()))
+            elif g.is_floating_point():
+                worst = max(worst, float((g - c).abs().max()))
+            elif not torch.equal(g, c):
+                raise AssertionError(f"hide_seek small step {i}: {name} "
+                                     "differs")
+    if not worst <= SMALL_TOL:
+        raise AssertionError(f"hide_seek card vs CPU: {worst} > {SMALL_TOL}")
+    if not worst_frac <= PIX_FRAC:
+        raise AssertionError(f"hide_seek card vs CPU: pixel share "
+                             f"{worst_frac} > {PIX_FRAC}")
+    print(f"hide_seek card vs CPU path: {SMALL_W} worlds x {SMALL_STEPS} "
+          f"steps, int exports equal, float max_abs_diff={worst!r}, share "
+          f"of pixels off by more than {PIX_TOL}: {worst_frac!r}")
+    return sims[DEV]
 
 
 def main() -> int:
@@ -599,8 +923,10 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from madrona_tpu_torch import make_sim
     from madrona_tpu_torch.models.escape_room import EscapeRoom
+    from madrona_tpu_torch.models.hide_seek import HideSeek
     from madrona_tpu_torch.ops import (
-        broadphase_cuda, contacts_cuda, cuda_build, lidar_cuda, solver_cuda,
+        broadphase_cuda, contacts_cuda, cuda_build, lidar_cuda, raycast_cuda,
+        solver_cuda,
     )
 
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
@@ -612,7 +938,7 @@ def main() -> int:
     # ---- 1. build
     t0 = time.perf_counter()
     libs = cuda_build.build(["broadphase.cu", "contacts.cu", "solver.cu",
-                             "lidar.cu"])
+                             "lidar.cu", "raycast.cu"])
     print(f"build: {time.perf_counter() - t0:.1f} s -> "
           + ", ".join(p.name for p in libs.values()))
     for src, log in cuda_build.BUILD_LOG.items():
@@ -689,9 +1015,66 @@ def main() -> int:
     print(f"card vs CPU path: {SMALL_W} worlds x {SMALL_STEPS} steps, "
           f"int exports equal, float max_abs_diff={worst!r}")
 
-    check_no_fallback(make_sim, EscapeRoom, kernels)
+    check_no_fallback(
+        make_sim(EscapeRoom(), num_worlds=SMALL_W, seed=0, device=DEV),
+        kernels)
 
-    # ---- 8: times at the main path's shapes
+    # ---- 8: the raycast kernel against its plain version, on a real
+    # Hide & Seek state (a probe sim, 3 steps in) and on synthetic planes
+    def pixels():
+        return HideSeek(render_size=HS_RENDER)
+
+    def state_only():
+        return HideSeek(pixels=False)
+
+    hs_acts = HideSeek.random_actions(np.random.RandomState(2), 3, HS_W)
+    hs_probe = make_sim(pixels(), num_worlds=HS_W, seed=1, device=DEV)
+    for i in range(3):
+        hs_probe.step({"action": hs_acts[i].to(DEV),
+                       "reset": torch.zeros((HS_W,), dtype=torch.int32,
+                                            device=DEV)})
+    ra_err, ray_scene = check_raycast(hs_probe)
+    del hs_probe
+
+    # ---- 9: B1-B3 on an arranged Hide & Seek state
+    hs_state_probe = make_sim(state_only(), num_worlds=HS_STATE_W, seed=1,
+                              device=DEV)
+    hs_state_probe.step({})
+    hs_errs, hs_scene = check_hide_seek_physics(hs_state_probe)
+    del hs_state_probe
+
+    # ---- 10: Hide & Seek's two launches, their kernel launches counted
+    hs_kernels = [broadphase_cuda.KERNEL, contacts_cuda.KERNEL,
+                  solver_cuda.KERNEL, raycast_cuda.KERNEL, lidar_cuda.KERNEL]
+    _, hs_outs, _, _, hs_launches = hide_seek_path(
+        make_sim, pixels, HS_W, hs_kernels, [STEPS] * 4 + [0],
+        "hide_seek pixels", {
+            "rgb": (HS_W, 4, HS_RENDER, HS_RENDER, 3),
+            "depth": (HS_W, 4, HS_RENDER, HS_RENDER),
+            "flat_obs": (HS_W, 4, 46), "visible": (HS_W, 2, 2)}, card)
+    rgb, depth = hs_outs[-1]["rgb"], hs_outs[-1]["depth"]
+    hit = float((depth < 80.0).float().mean())
+    print(f"hide_seek pixels: rgb in [{float(rgb.min()):.3f}, "
+          f"{float(rgb.max()):.3f}], depth in [{float(depth.min()):.3f}, "
+          f"{float(depth.max()):.3f}], share of rays that hit {hit:.3f}")
+    if not (float(rgb.min()) >= 0.0 and float(rgb.max()) <= 1.0
+            and float(depth.min()) > 0.0 and float(depth.max()) <= 80.0
+            and 0.5 < hit < 1.0):
+        raise AssertionError("hide_seek pixels: rgb or depth out of range")
+    del hs_outs, rgb, depth
+    hide_seek_path(
+        make_sim, state_only, HS_STATE_W, hs_kernels, [STEPS] * 3 + [0, 0],
+        "hide_seek state only", {
+            "flat_obs": (HS_STATE_W, 4, 46), "self_obs": (HS_STATE_W, 4, 10),
+            "visible": (HS_STATE_W, 2, 2)}, card)
+
+    # ---- 11: Hide & Seek, the card against the CPU path; no fallback
+    small_hs = check_hide_seek_small(make_sim, HideSeek)
+    check_no_fallback(small_hs, [raycast_cuda.KERNEL], launch=("render",))
+    check_no_fallback(small_hs, hs_kernels[:3], launch=("step",))
+    torch.cuda.empty_cache()
+
+    # ---- 12: times at the main paths' shapes
     from madrona_tpu_torch.physics import api as papi
     from madrona_tpu_torch.physics import broadphase as bp
 
@@ -754,6 +1137,49 @@ def main() -> int:
     print(f"physics route (B1 + integrate + packs + B2 + B3): "
           f"{route_ms:.4f} ms")
 
+    # raycast at the pixel path's shapes (phase 8's real scene)
+    r_planes, r_opts, n_rays = ray_scene
+    r_out = raycast_cuda.raytrace(*r_planes, **r_opts)
+    ra_bytes = nbytes(*r_planes, r_out)
+    wv, t_pad = r_planes[0].shape[:2]
+    pairs = wv * t_pad * r_out.shape[2]
+    ra_ops = (pairs * (RAY_OPS_PAIR
+                       + (RAY_OPS_PAIR_SHADOW if r_opts["shadows"] else 0))
+              + wv * r_out.shape[2]
+              * (RAY_OPS_RAY + (RAY_OPS_RAY_MATERIALS
+                                if r_opts["use_materials"] else 0)))
+    del r_out
+    ra_ms = timed(lambda: raycast_cuda.raytrace(*r_planes, **r_opts), 20, 2)
+    ra_plain_ms = timed(
+        lambda: raycast_cuda.raytrace_plain(*r_planes, **r_opts), 2, 1)
+
+    # B1-B3 at Hide & Seek's shapes (phase 9's arranged scene, 16,384
+    # worlds): times only, beside the rows of the Escape Room shapes
+    hb, hom, hcfg = hs_scene["body"], hs_scene["om"], HideSeek(pixels=False)
+    h_in = (hs_scene["state"], hs_scene["param"], *hs_scene["c_out"],
+            *hs_scene["jargs"])
+    h_pack = broadphase_cuda.pack_bodies(hb, hom)
+    hs_ms = {
+        "broadphase": (
+            timed(lambda: broadphase_cuda.broadphase(h_pack, hcfg.caps,
+                                                     hcfg.cfg.dt)),
+            timed(lambda: bp.find_candidates(hb, hom, hcfg.caps,
+                                             hcfg.cfg.dt), 20)),
+        "contacts": (
+            timed(lambda: contacts_cuda.contacts(*hs_scene["c_args"], hom)),
+            timed(lambda: contacts_cuda.contacts_plain(*hs_scene["c_args"],
+                                                       hom),
+                  PLAIN_PHYSICS_ITERS, 1)),
+        "substep_solver": (
+            timed(lambda: solver_cuda.substep_solver(hcfg.cfg, *h_in)),
+            timed(lambda: solver_cuda.substep_solver_plain(hcfg.cfg, *h_in),
+                  PLAIN_PHYSICS_ITERS, 1)),
+    }
+    for (name, (k_ms, pl_ms)), err in zip(hs_ms.items(), hs_errs):
+        print(f"{name} at the hide_seek shape (W={HS_STATE_W}, N=14, caps "
+              f"7/9, J=4): {k_ms:.4f} ms/launch, plain {pl_ms:.4f} ms, "
+              f"max_abs_diff {err!r} ({card})")
+
     def bound(b, ops):
         t_bytes, t_ops = b / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -773,11 +1199,19 @@ def main() -> int:
         ("lidar", "madrona_tpu_torch/csrc/lidar.cu",
          "madrona_tpu/ops/lidar_pallas.py:53", lidar_cuda.KERNEL,
          li_err, li_ms, li_plain_ms, li_bytes, li_ops),
+        ("raycast", "madrona_tpu_torch/csrc/raycast.cu",
+         "madrona_tpu/ops/raycast_pallas.py:150", raycast_cuda.KERNEL,
+         ra_err, ra_ms, ra_plain_ms, ra_bytes, ra_ops),
     ):
         b_ms, b_by = bound(b, ops)
+        # a kernel's launches: from the main path that runs it (raycast:
+        # Hide & Seek with pixels; the others: the Escape Room)
+        n_launch = (hs_launches[hs_kernels.index(k)]
+                    if k is raycast_cuda.KERNEL
+                    else launches[kernels.index(k)])
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": launches[kernels.index(k)], "max_abs_err": err,
+            "launches": n_launch, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None,
         })

@@ -1,8 +1,9 @@
 """madrona_tpu_torch: the PyTorch / CUDA port of madrona_tpu.
 
 Batch simulation of thousands of ECS worlds in lockstep on one NVIDIA
-H100: the same ECS core, taskgraph, XPBD physics and Escape Room env as
-the JAX package beside it, written as plain PyTorch on tensors, with
+H100: the same ECS core, taskgraph, XPBD physics, batch raycaster and
+Escape Room and Hide & Seek envs as the JAX package beside it, written
+as plain PyTorch on tensors, with
 the TPU's Pallas kernels replaced by CUDA C++ kernels written by hand
 (``csrc/``, bound through ctypes in ``ops/``).
 

@@ -9,16 +9,19 @@ RNG discipline (unchanged): each step derives
 ``node_key = split(step_key, node_id)``, so every (step, node, world)
 has its own reproducible Threefry key, bit-equal to the JAX package's.
 
-Only ``custom`` nodes are ported in this slice (the Escape Room graph
-uses nothing else); ``parallel_for``, ``for_worlds``, ``sort`` and
-``compact``, and several named graphs per env (``TaskGraphManager``),
-come with the envs that use them.
+Only ``custom`` nodes are ported (the Escape Room and Hide & Seek
+graphs use nothing else); ``parallel_for``, ``for_worlds``, ``sort``
+and ``compact`` come with the envs that use them. An env with several
+named graphs (Hide & Seek: "step" and "render") declares them through
+:class:`TaskGraphManager`; each graph applied advances ``state.step`` by
+one, so a ``("step", "render")`` launch advances it by two, as in the
+JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -68,6 +71,29 @@ class TaskGraphBuilder:
     def build(self) -> "TaskGraph":
         """Freeze; insertion order is topological (deps point backwards)."""
         return TaskGraph(self.sm, self.name, list(self.nodes))
+
+
+class TaskGraphManager:
+    """Hands out named builders so one env declares several taskgraphs
+    (``mgr.init("step")``, ``mgr.init("render")``); ``build_all``
+    freezes them into the dict the Executor takes, and a launch such as
+    ``("step", "render")`` applies them in order."""
+
+    def __init__(self, sm: StateManager):
+        self.sm = sm
+        self._builders: Dict[str, TaskGraphBuilder] = {}
+
+    def init(self, name: str) -> TaskGraphBuilder:
+        if name in self._builders:
+            raise ValueError(f"taskgraph {name!r} already declared")
+        b = TaskGraphBuilder(self.sm, name)
+        self._builders[name] = b
+        return b
+
+    def build_all(self) -> Dict[str, "TaskGraph"]:
+        if not self._builders:
+            raise ValueError("no taskgraphs declared")
+        return {n: b.build() for n, b in self._builders.items()}
 
 
 class TaskGraph:

@@ -18,7 +18,7 @@ import torch
 
 from ..core.registry import ECSRegistry
 from ..core.state import SimState, StateManager
-from ..graph.builder import TaskGraphBuilder
+from ..graph.builder import TaskGraphBuilder, TaskGraphManager
 from ..graph.executor import Executor
 
 
@@ -39,15 +39,26 @@ class EnvBase:
       * ``register_types(self, reg)``    — components/archetypes/exports
       * ``setup_tasks(self, builder)``   — system wiring
       * ``init_worlds(self, sm, state)`` — world construction
+
+    An env with one graph implements ``setup_tasks(builder)``; one with
+    several (Hide & Seek: step and render) implements
+    ``setup_graphs(mgr)`` instead. ``default_launch`` names the graphs
+    that ``Sim.step()`` applies, in order.
     """
 
     name = "env"
+    default_launch = ("step",)
 
     def register_types(self, reg: ECSRegistry):
         raise NotImplementedError
 
     def setup_tasks(self, builder: TaskGraphBuilder):
         raise NotImplementedError
+
+    def setup_graphs(self, mgr: TaskGraphManager):
+        """Multi-graph hook; by default ``setup_tasks`` is the "step"
+        graph."""
+        self.setup_tasks(mgr.init("step"))
 
     def init_worlds(self, sm: StateManager, state: SimState) -> SimState:
         return state
@@ -59,10 +70,10 @@ def make_sim(env: EnvBase, num_worlds: int, seed: int = 0, device=None,
     dev = resolve_device(device)
     sm = StateManager()
     env.register_types(ECSRegistry(sm))
-    builder = TaskGraphBuilder(sm, "step")
-    env.setup_tasks(builder)
+    mgr = TaskGraphManager(sm)
+    env.setup_graphs(mgr)
     ex = Executor(
-        sm, {"step": builder.build()}, num_worlds=num_worlds, seed=seed,
+        sm, mgr.build_all(), num_worlds=num_worlds, seed=seed,
         init_fn=env.init_worlds, max_entities=max_entities, device=dev,
     )
     return Sim(env=env, executor=ex)
@@ -87,10 +98,11 @@ class Sim:
     def device(self) -> torch.device:
         return self.executor.state.rng.device
 
-    def step(self, inputs: Optional[Dict[str, Any]] = None
+    def step(self, inputs: Optional[Dict[str, Any]] = None, launch=None
              ) -> Dict[str, Any]:
-        return self.executor.run(("step",), inputs)
+        return self.executor.run(launch or self.env.default_launch, inputs)
 
-    def step_fn(self) -> Callable:
-        """Pure ``(state, inputs) -> (state, exports)``."""
-        return self.executor.step_fn(("step",))
+    def step_fn(self, launch=None) -> Callable:
+        """Pure ``(state, inputs) -> (state, exports)`` over the graphs
+        of ``launch`` (default: the env's ``default_launch``)."""
+        return self.executor.step_fn(launch or self.env.default_launch)

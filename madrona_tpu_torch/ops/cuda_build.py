@@ -34,13 +34,14 @@ BASE_FLAGS = [
 ]
 # No kernel may contract a*b+c into an FMA: each must repeat its plain
 # PyTorch version's rounding (the broadphase and the contacts feed integer
-# outputs through comparisons). No --use_fast_math: it approximates
+# outputs through comparisons; the raycast picks its nearest hit by them). No --use_fast_math: it approximates
 # division and square roots.
 SOURCE_FLAGS = {
     "broadphase.cu": ["--fmad=false"],
     "lidar.cu": ["--fmad=false"],
     "contacts.cu": ["--fmad=false"],
     "solver.cu": ["--fmad=false"],
+    "raycast.cu": ["--fmad=false"],
 }
 
 

@@ -101,6 +101,14 @@ def joints_view(state: SimState) -> _joints.Joints:
     return _joints.Joints(**state.singletons[JOINT_BUFFER])
 
 
+def write_joints(state: SimState, joints: _joints.Joints) -> SimState:
+    singles = dict(state.singletons)
+    singles[JOINT_BUFFER] = {
+        f.name: getattr(joints, f.name) for f in dataclasses.fields(joints)
+    }
+    return dataclasses.replace(state, singletons=singles)
+
+
 def body_state(sm: StateManager, state: SimState) -> BodyState:
     """View the RigidBody table as a solver BodyState (no copy)."""
     t = state.tables[RIGID_BODY]

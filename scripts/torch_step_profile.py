@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
-"""Where one Escape Room step of the PyTorch port spends its time on the GPU.
+"""Where one env step of the PyTorch port spends its time on the GPU.
 
-    python3 scripts/torch_step_profile.py [--worlds 4096] [--steps 20]
+    python3 scripts/torch_step_profile.py [--env escape_room] [--worlds N]
+                                          [--steps 20]
 
-Prints, for make_sim(EscapeRoom(), worlds) on the card after a warm-up:
+``--env`` is ``escape_room`` (default, 4096 worlds), ``hide_seek`` (Hide &
+Seek with 64 x 64 pixels through its ("step", "render") launch, 1024
+worlds) or ``hide_seek_state`` (state only, 16384 worlds). Prints, for
+make_sim(env, worlds) on the card after a warm-up:
   * the card's name and power limit;
   * the unfenced step time (host clock around `steps` steps ending in a
     synchronize) and env-steps/s;
-  * the time of the executor's per-step key splitting alone (the six
-    Threefry splits TaskGraph.step makes: one step key, five node keys);
+  * the time of the executor's per-step key splitting alone (the
+    Threefry splits TaskGraph.step makes: one step key per graph of the
+    launch and one key per node);
   * from torch.profiler over 5 steps: device kernel time per step and
     the device's busy share, kernel launches per step, and the largest
     kernels by device time and operators by host time.
@@ -30,14 +35,22 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from madrona_tpu_torch import make_sim                      # noqa: E402
 from madrona_tpu_torch.models.escape_room import EscapeRoom  # noqa: E402
+from madrona_tpu_torch.models.hide_seek import HideSeek     # noqa: E402
 from madrona_tpu_torch.utils import rng as _rng             # noqa: E402
 
 PROFILED_STEPS = 5
+# name -> (env factory, default world count)
+ENVS = {
+    "escape_room": (EscapeRoom, 4096),
+    "hide_seek": (lambda: HideSeek(render_size=64), 1024),
+    "hide_seek_state": (lambda: HideSeek(pixels=False), 16384),
+}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--worlds", type=int, default=4096)
+    ap.add_argument("--env", choices=sorted(ENVS), default="escape_room")
+    ap.add_argument("--worlds", type=int, default=None)
     ap.add_argument("--steps", type=int, default=20)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -49,12 +62,14 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
     print(card)
-    w = args.worlds
+    make_env, default_w = ENVS[args.env]
+    w = args.worlds or default_w
     total = 10 + args.steps + PROFILED_STEPS
-    acts = EscapeRoom.random_actions(np.random.RandomState(0), total,
-                                     w).cuda()
+    sim = make_sim(make_env(), num_worlds=w, seed=0)
+    acts = sim.env.random_actions(np.random.RandomState(0), total, w).cuda()
     reset = torch.zeros((w,), dtype=torch.int32, device="cuda")
-    sim = make_sim(EscapeRoom(), num_worlds=w, seed=0)
+    launch = sim.env.default_launch
+    print(f"{args.env}: {w} worlds, launch {launch}")
     step = 0
     for _ in range(10):
         sim.step({"action": acts[step], "reset": reset})
@@ -70,17 +85,18 @@ def main() -> int:
           f"({w} worlds, {args.steps} steps after 10 of warm-up)")
 
     state = sim.state
-    n_nodes = len(sim.executor.graphs["step"].nodes)
+    n_nodes = [len(sim.executor.graphs[g].nodes) for g in launch]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(args.steps):
-        key = _rng.split_i(state.rng, state.step.to(torch.int64))
-        for node_id in range(n_nodes):
-            _rng.split_i(key, node_id)
+        for n in n_nodes:
+            key = _rng.split_i(state.rng, state.step.to(torch.int64))
+            for node_id in range(n):
+                _rng.split_i(key, node_id)
     torch.cuda.synchronize()
     split_ms = (time.perf_counter() - t0) * 1e3 / args.steps
     print(f"key splitting alone: {split_ms:.3f} ms/step "
-          f"({1 + n_nodes} Threefry splits)")
+          f"({len(n_nodes) + sum(n_nodes)} Threefry splits)")
 
     from torch.profiler import ProfilerActivity, profile
 

@@ -11,7 +11,14 @@ On the CPU ``ops.solver_cuda.substep_solver`` runs its plain version
     (``make_substep_solver``) at the Escape Room shape (N = 21, C = 16,
     J = 2, 4 substeps, 1 iteration, ``dyn_range=(13, 21)``,
     ``ref_dyn_lanes=8``) with a grab joint switched on, on a state the
-    port's own CPU sim made from a seed: all 33 output fields.
+    port's own CPU sim made from a seed: all 33 output fields;
+  * one more such call at Hide & Seek's shape (N = 14, C = 7 + 9,
+    J = 4 joint slots of which one is live in world 0 and the others carry
+    e1 = e2 = -1, ``dyn_range=(5, 14)``, ``ref_dyn_lanes=7``, a locked box
+    as a static row inside the dynamic range, agents with infinite x/y
+    inertia), one substep of the env's substep length (the interpret-mode
+    call costs about 7 s a substep; the Escape Room case above runs all
+    four): all 33 output fields.
 
 Tolerances are the JAX package's golden bounds
 (tests/golden_inputs.py:484-492): positions and rotations 1e-3, linear
@@ -41,7 +48,8 @@ from madrona_tpu_torch.physics import geo as tgeo
 from madrona_tpu_torch.physics import xpbd as txpbd
 
 from torch_port import (
-    SOLVER_FIELDS as FIELDS, jax_tree, torch_body, with_grab_joints,
+    SOLVER_FIELDS as FIELDS, hide_seek_kernel_inputs, hide_seek_scene,
+    jax_tree, torch_body, with_grab_joints,
 )
 
 torch.set_num_threads(1)
@@ -172,6 +180,60 @@ def test_static_rows_equal_their_inputs(escape_room_case):
         np.testing.assert_array_equal(out[13:20, :d0], c["state"][:7, :d0])
         np.testing.assert_array_equal(out[20:27, :d0], c["state"][:7, :d0])
         assert (out[27:33, :d0] == 0.0).all()
+
+
+@pytest.fixture(scope="module")
+def hide_seek_case():
+    from madrona_tpu_torch.models import hide_seek as hs
+
+    env, sim, state = hide_seek_scene(W, 3)
+    _, _, _, args = hide_seek_kernel_inputs(env, sim, state)
+    # one substep of the env's length h
+    cfg = dataclasses.replace(env.cfg, dt=env.cfg.dt / env.cfg.substeps,
+                              substeps=1)
+    got = solver_cuda.substep_solver(cfg, *args)
+    fn = spk.make_substep_solver(
+        hs.N_BODIES, args[2].shape[0], cfg.substeps, cfg.jacobi_iters,
+        cfg.dt / cfg.substeps, cfg.gravity, cfg.restitution,
+        cfg.restitution_threshold, n_joints=args[7].shape[0], tile_w=W,
+        interpret=True, dyn_range=cfg.solver_dynamic_range,
+        ref_dyn_lanes=cfg.solver_ref_dyn_lanes,
+    )
+    ref = np.asarray(fn(*(jnp.asarray(a.numpy()) for a in args)))
+    return dict(cfg=cfg, state=args[0].numpy(), param=args[1].numpy(),
+                con=args[4].numpy(), jnt=args[9].numpy(), je=args[7].numpy(),
+                got=got.numpy(), ref=ref, locked_row=hs.ROW_BOX0)
+
+
+@pytest.mark.parametrize("name, lo, hi, tol", FIELDS,
+                         ids=[f[0] for f in FIELDS])
+def test_hide_seek_shape_matches_pallas_kernel(hide_seek_case, name, lo, hi,
+                                               tol):
+    c = hide_seek_case
+    d = np.abs(c["got"][lo:hi].astype(np.float64) - c["ref"][lo:hi]).max()
+    assert d <= tol, (name, d)
+
+
+def test_hide_seek_shape_static_rows_and_joints(hide_seek_case):
+    c = hide_seek_case
+    assert c["cfg"].solver_dynamic_range == (5, 14)
+    assert c["cfg"].solver_ref_dyn_lanes == 7
+    assert c["got"].shape == (solver_cuda.OUT_F, 14, W)
+    assert np.isfinite(c["got"]).all()
+    assert (c["con"][7] > 0.5).sum() >= 8 * W          # contacts ok
+    assert (c["jnt"][21] > 0.5).sum() == 1              # world 0, slot 2
+    assert (c["je"] == -1).sum() == 4 * W - 1           # the other slots
+    # the locked box (even worlds) is a static row inside the dynamic
+    # range: it stays where it was, in both packages
+    row = c["locked_row"]
+    for out in (c["got"], c["ref"]):
+        np.testing.assert_array_equal(out[:13, row, 0::2],
+                                      c["state"][:, row, 0::2])
+    # the same box moves in the odd worlds, and so does the held box
+    assert np.abs(c["got"][:3, row, 1::2] - c["state"][:3, row, 1::2]
+                  ).max() > 1e-4
+    assert np.abs(c["got"][:3, row + 2, 0] - c["state"][:3, row + 2, 0]
+                  ).max() > 1e-4
 
 
 def test_cpu_step_launches_no_kernel(escape_room_case):

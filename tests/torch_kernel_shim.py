@@ -23,7 +23,7 @@ import subprocess
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CSRC = ROOT / "madrona_tpu_torch" / "csrc"
 SHIM = pathlib.Path(__file__).resolve().parent / "cuda_cpu_shim"
-SOURCES = ("broadphase", "contacts", "solver", "lidar")
+SOURCES = ("broadphase", "contacts", "solver", "lidar", "raycast")
 
 _LAUNCH = re.compile(r"(\w+)<<<(.*?)>>>\(\s*(.*?)\);", re.S)
 

@@ -11,6 +11,7 @@ import torch
 
 from madrona_tpu_torch.interop import state_from_numpy
 from madrona_tpu_torch.models import escape_room as t_er
+from madrona_tpu_torch.models import hide_seek as t_hs
 from madrona_tpu_torch.physics import api as t_api
 from madrona_tpu_torch.physics import xpbd as t_xpbd
 
@@ -129,3 +130,94 @@ def with_grab_joints(state):
     singles = dict(state.singletons)
     singles[t_api.JOINT_BUFFER] = jb
     return dataclasses.replace(state, singletons=singles)
+
+
+def raycast_planes(seed, tex):
+    """Random inputs of the raycast kernel as numpy arrays: setup
+    [4, 40, 24] (36 live rows), attrs [4, 16, 40], dl [8, 256], atlas
+    [3 * tex, 2 * tex], made as chip_smoke.py makes its synthetic ones
+    (exact ties, disabled shadow rows, dead rows)."""
+    import chip_smoke
+
+    return [x.numpy() for x in chip_smoke.synthetic_ray_planes(
+        np.random.RandomState(seed), 4, 40, 256, tex, "cpu")]
+
+
+def raycast_scene(registry, seed=0, w=2, n_box=4):
+    """Floor quad, a pyramid and boxes at random transforms: the mesh
+    tables of ``registry`` and numpy arrays."""
+    reg = registry()
+    floor = reg.add_quad(20.0, color=(0.4, 0.4, 0.4))
+    box = reg.add_box([0.6, 0.5, 0.7], color=(0.7, 0.3, 0.2))
+    verts = [(-1, -1, 0), (1, -1, 0), (1, 1, 0), (-1, 1, 0), (0, 0, 1.2)]
+    tris = [(0, 1, 4), (1, 2, 4), (2, 3, 4), (3, 0, 4), (0, 2, 1),
+            (0, 3, 2)]
+    pyr = reg.add_mesh(verts, tris, color=(0.2, 0.6, 0.3))
+    mesh = reg.build()
+
+    rs = np.random.RandomState(seed)
+    i_n = 2 + n_box
+    pos = np.zeros((w, i_n, 3), np.float32)
+    rot = np.zeros((w, i_n, 4), np.float32)
+    rot[..., 0] = 1.0
+    scale = np.ones((w, i_n, 3), np.float32)
+    obj = np.zeros((w, i_n), np.int32)
+    obj[:, 0] = floor
+    obj[:, 1] = pyr
+    pos[:, 1, :2] = rs.uniform(-3, 3, (w, 2))
+    for b in range(n_box):
+        obj[:, 2 + b] = box
+        pos[:, 2 + b, :2] = rs.uniform(-4, 4, (w, 2))
+        pos[:, 2 + b, 2] = rs.uniform(0.5, 1.5, w)
+        ang = rs.uniform(0, np.pi, w)
+        rot[:, 2 + b, 0] = np.cos(ang / 2)
+        rot[:, 2 + b, 3] = np.sin(ang / 2)
+        scale[:, 2 + b] = rs.uniform(0.7, 1.4, (w, 1))
+    mask = np.ones((w, 2, i_n), bool)
+    mask[:, :, -1] = False                     # one dead instance
+    mask[:, 1, 2] = False                      # one hidden from view 1
+    cam_pos = np.zeros((w, 2, 3), np.float32)
+    cam_pos[:, :, 1] = -8.0
+    cam_pos[:, :, 2] = 2.5
+    cam_pos[:, 1, 0] = 3.0
+    cam_rot = np.zeros((w, 2, 4), np.float32)
+    cam_rot[..., 0] = 1.0                      # +y forward
+    ang = rs.uniform(-0.3, 0.3, w)
+    cam_rot[:, 1, 0] = np.cos(ang / 2)
+    cam_rot[:, 1, 3] = np.sin(ang / 2)
+    return mesh, (pos, rot, scale, obj, mask, cam_pos, cam_rot)
+
+
+def hide_seek_scene(w, seed):
+    """(env, sim, state): a Hide & Seek SimState of the port (CPU, state
+    only) as chip_smoke.py arranges it for the physics kernels: a box on
+    a ramp's low end, an agent on a ramp's slope, an agent against a
+    ramp's triangular side, a box against a wall; box 0 locked (a static
+    row inside the solver's dynamic range) in the even worlds; seeker 0
+    holding box 2 by a fixed joint in slot 2 of every fourth world, every
+    other slot inactive with e1 = e2 = -1; random kicks."""
+    import chip_smoke
+    from madrona_tpu_torch import make_sim
+
+    env = t_hs.HideSeek(pixels=False)
+    sim = make_sim(env, num_worlds=w, seed=seed, device="cpu")
+    sim.step({})
+    return env, sim, chip_smoke.arrange_hide_seek(sim)
+
+
+def hide_seek_kernel_inputs(env, sim, state):
+    """(body, candidates, contacts-kernel args, solver-kernel args) of the
+    physics node at ``state``, from the plain versions."""
+    from madrona_tpu_torch.ops import contacts_cuda, solver_cuda
+    from madrona_tpu_torch.physics import broadphase as t_bp
+
+    cfg = env.cfg
+    body = t_api.body_state(sim.executor.sm, state)
+    cands = t_bp.find_candidates(body, env.om, env.caps, cfg.dt)
+    pred = t_xpbd.integrate(body, env.om, cfg.dt / cfg.substeps, cfg.gravity)
+    poses, obj = contacts_cuda.pack_poses(pred, body.obj_id)
+    cin = (cands.hh.contiguous(), cands.hp.contiguous(), poses, obj)
+    cargs = contacts_cuda.contacts_plain(*cin, env.om)
+    state_t, param_t = solver_cuda.pack_state(body, env.om)
+    jargs = solver_cuda.pack_joints(t_api.joints_view(state), t_hs.N_BODIES)
+    return body, cands, cin, (state_t, param_t, *cargs, *jargs)
