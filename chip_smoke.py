@@ -5,7 +5,7 @@
 
 Phases, each printing its own lines:
   1. the card (nvidia-smi name and power limit) and the kernel build
-     (one nvcc per csrc/*.cu source, all five started together);
+     (one nvcc per csrc/*.cu source, all seven started together);
   2. the broadphase kernel against its plain PyTorch version at 4096
      worlds, on random scenes (caps-saturating ones included) and on a
      real Escape Room body state: every field exactly equal;
@@ -21,33 +21,54 @@ Phases, each printing its own lines:
      and on the crowded scene's contacts: all 33 output fields within
      pose 1e-3, velocity 5e-2, angular velocity 2e-1; static rows
      bit-equal to their inputs;
-  6. the main path: make_sim(EscapeRoom(), 4096 worlds, seed 0) on the
+  6. the hull-hull record kernel (B6, and B7 in the edge_pairs tier)
+     against its plain version at 4096 worlds, in both SAT tiers, on the
+     Escape Room state and the crowded scene: ref, alt, num equal;
+     normal within 1e-4 on live lanes; points within 1e-3, unordered;
+  7. the fused-step kernel (B8) against its plain version with phase 5's
+     tolerances, static rows bit-equal to their inputs: on the Escape
+     Room state with joints at 4096 worlds and on a scene of a plane, two
+     box sizes and spheres with hull-hull, hull-plane and sphere lanes
+     live at 4096 worlds (the Hide & Seek scene follows in phase 11);
+  8. the main path: make_sim(EscapeRoom(), 4096 worlds, seed 0) on the
      card, stepped with seeded random actions; every export finite, each
      of the four kernels launched once per step, a fresh sim with the
      same seed bit-identical; env-steps/s; ms per taskgraph node;
-  7. the same env at 8 worlds on the card against the port's CPU path;
+  9. the same env at 8 worlds on the card against the port's CPU path;
      and, with the kernels' libraries and the compiler taken away, a step
      on the card raises (no fallback to the plain versions);
-  8. the raycast kernel against its plain version: on a real Hide & Seek
+ 10. the raycast kernel against its plain version: on a real Hide & Seek
      state at 1024 worlds x 4 views x 64 x 64 rays (flat colours, as the
      dense render tier runs it) and on synthetic planes with the shadow,
      light and material options at 256 views: all eight planes within
      RAY_TOL (expected: equal);
-  9. the broadphase, contacts and solver kernels against their plain
-     versions on an arranged Hide & Seek state at 16,384 worlds (ramp
-     wedges in contact, 4 joint slots, a locked box in half the worlds),
-     with phase 2, 4 and 5's tolerances;
- 10. Hide & Seek's two launches: make_sim(HideSeek(render_size=64), 1024
+ 11. the broadphase, contacts, solver and fused-step kernels against
+     their plain versions on an arranged Hide & Seek state at 16,384
+     worlds (ramp wedges in contact, 4 joint slots, a locked box in half
+     the worlds), with phase 2, 4 and 5's tolerances;
+ 12. Hide & Seek's two launches: make_sim(HideSeek(render_size=64), 1024
      worlds) through ("step", "render"), and make_sim(HideSeek(pixels=
      False), 16,384 worlds) through ("step",), 20 steps of seeded random
      actions each: exports finite and of the expected shapes, broadphase,
      contacts, solver (and raycast) launched once per step each and the
      lidar not at all, a fresh sim bit-identical, ms per node, env-steps/s;
- 11. Hide & Seek at 8 worlds on the card against the port's CPU path: int
+ 13. Hide & Seek at 8 worlds on the card against the port's CPU path: int
      exports equal, float exports within SMALL_TOL, pixels differing by
      more than PIX_TOL at under PIX_FRAC of the pixels; and, with the
      raycast library and the compiler taken away, a render step raises;
- 12. per-kernel times (CUDA events) beside their bounds, as one JSON line.
+ 14. the physics tiers of this slice at full width, 20 steps of seeded
+     random actions each, every kernel's launches counted: Escape Room
+     with megakernel_fused (B1, B8, B4 once per step; no B2, B3), Hide &
+     Seek state only with it (B1, B8), Escape Room with narrowphase=
+     "kernel_sublane" (B1, B6, B3, B4) and "kernel" (B1, B7, B3, B4);
+     exports finite, a fresh sim bit-identical, ms per node,
+     env-steps/s; then the split and the fused Escape Room step timed in
+     turns (split, fused, fused, split);
+ 15. the fused Escape Room at 8 worlds on the card against the port's CPU
+     path; and, with the fused library and the compiler taken away, a
+     fused step raises;
+ 16. per-kernel times (CUDA events) beside their bounds, as one JSON line
+     of all eight kernels.
 
 Any failure raises (non-zero exit). The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -56,6 +77,7 @@ Needs CUDA and nvcc; imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -130,6 +152,23 @@ SOLVER_OPS_JOINT = 900
 # ands). Per ray ~40 (16 attribute reads, shade 6, compose and sky select
 # 9, eight plane writes), ~90 more with materials (uv 8, texel addresses
 # ~40, 12 taps and their weights 36).
+# hull-hull record (csrc/hh_narrowphase.cu): the contacts kernel's
+# hull-hull lane, so HH_OPS_* in the edge_dirs tier. In the edge_pairs
+# tier a candidate costs ~19,600 up to its separation test: two hulls
+# 1,650, face queries 672, 24 edges to world space (2 points x 36, 2
+# normals x 85: ~240 each, 5,800), 144 pairs x ~80 (Gauss-map test 38,
+# cross and length 14, normalize 5, orientation 8, separation 8, the
+# running best 7); its edge contact ~60 (no witness sweep).
+HH_OPS_CANDIDATE_PAIRS = 19600
+HH_OPS_EDGE_PAIRS = 60
+# fused step (csrc/fused_step.cu): the predicted-pose integrate ~200 per
+# body; the lanes as above; a sphere lane ~3,100 against a hull (hull 825,
+# face distances 42, vertices 64, 12 edges x ~50, 6 faces x ~260, tail
+# 40), ~40 against a plane, ~30 against a sphere; then the solver's
+# counts over all rows.
+SPHERE_OPS_HULL = 3100
+SPHERE_OPS_PLANE = 40
+SPHERE_OPS_SPHERE = 30
 RAY_OPS_PAIR = 30
 RAY_OPS_PAIR_SHADOW = 28
 RAY_OPS_RAY = 40
@@ -164,6 +203,34 @@ def timed(fn, iters=TIMING_ITERS, warmup=5):
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def referenced_row_bytes(poses, obj, *cands) -> int:
+    """Bytes of poses [N, F, W] and obj [N, W] that a narrowphase kernel
+    must read: the rows that a live candidate of ``cands`` ([W, P, 2]
+    rows, sentinel N) names, each (row, world) once."""
+    import torch
+
+    n, f, w = poses.shape
+    used = torch.zeros((n + 1, w), dtype=torch.bool, device=poses.device)
+    worlds = torch.arange(w, device=poses.device)
+    for c in cands:
+        live = (c[..., 0] < n) & (c[..., 1] < n)                # [W, P]
+        for side in (0, 1):
+            rows = torch.where(live, c[..., side], n).long()
+            used[rows, worlds[:, None].expand_as(rows)] = True
+    return int(used[:n].sum()) * (f * poses.element_size()
+                                  + obj.element_size())
+
+
+def live_lane_bytes(ref, alt, con, pts, num) -> int:
+    """Bytes of contact tables [.., C, W] that a solver must read: every
+    lane's count, and the rows, reduced contact and points of the live
+    lanes."""
+    per_lane = (ref.element_size() + alt.element_size()
+                + con.shape[0] * con.element_size()
+                + pts.shape[0] * pts.element_size())
+    return nbytes(num) + int((num > 0).sum()) * per_lane
 
 
 def random_scene(rs, om, n_obj_hi, n, crowded):
@@ -322,8 +389,6 @@ def crowded_scene():
 def with_grab_joints(sim):
     """The sim's state with a fixed grab joint (agent 0 holds cube 0) on
     in the even worlds and a hinge (agent 1, cube 1) in every fourth."""
-    import dataclasses
-
     import torch
     from madrona_tpu_torch.models import escape_room as er
     from madrona_tpu_torch.physics import api as papi
@@ -378,6 +443,39 @@ def sorted_points(pts, num):
     return np.take_along_axis(p, order[..., None], axis=1)
 
 
+def compare_tables(what, name, got, ref):
+    """Contact tables (ref, alt, con, pts, num) [.., C, W] of a kernel
+    against its plain version's: rows, counts and ok flags equal; on ok
+    lanes the reduced contact (normal, average point, largest
+    penetration) within CON_TOL and the manifold points within PTS_TOL,
+    unordered. Returns (con difference, points difference)."""
+    import torch
+
+    for f, a, b in zip(("ref", "alt", "con", "pts", "num"), got, ref):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"{what} {name}: {f} shape/dtype differs")
+    for i, f in ((0, "ref"), (1, "alt"), (4, "num")):
+        if not torch.equal(got[i], ref[i]):
+            bad = int((got[i] != ref[i]).sum())
+            raise AssertionError(
+                f"{what} {name}: {f} differs in {bad} of "
+                f"{got[i].numel()} lanes")
+    ok = ref[2][7] > 0.5
+    if not torch.equal(got[2][7], ref[2][7]):
+        raise AssertionError(f"{what} {name}: ok flags differ")
+    con_err = float(torch.where(ok[None], (got[2] - ref[2]).abs(),
+                                0.0).max())
+    num_ok = torch.where(ok, ref[4], 0).cpu().numpy()
+    pts_err = float(np.abs(
+        sorted_points(got[3].cpu().numpy(), num_ok)
+        - sorted_points(ref[3].cpu().numpy(), num_ok)).max())
+    if not con_err <= CON_TOL:
+        raise AssertionError(f"{what} {name}: con {con_err} > {CON_TOL}")
+    if not pts_err <= PTS_TOL:
+        raise AssertionError(f"{what} {name}: pts {pts_err} > {PTS_TOL}")
+    return con_err, pts_err
+
+
 def check_contacts(name, args, om, n_hh, want_face_and_edge):
     """Phase 4 on one scene. Returns (kernel outputs, largest float
     difference, the scene's lane counts for the operation count)."""
@@ -387,25 +485,9 @@ def check_contacts(name, args, om, n_hh, want_face_and_edge):
     got = contacts_cuda.contacts(*args, om)
     ref = contacts_cuda.contacts_plain(*args, om)
     torch.cuda.synchronize()
-    for f, a, b in zip(("ref", "alt", "con", "pts", "num"), got, ref):
-        if a.shape != b.shape or a.dtype != b.dtype:
-            raise AssertionError(f"contacts {name}: {f} shape/dtype differs")
-    for i, f in ((0, "ref"), (1, "alt"), (4, "num")):
-        if not torch.equal(got[i], ref[i]):
-            bad = int((got[i] != ref[i]).sum())
-            raise AssertionError(
-                f"contacts {name}: {f} differs in {bad} of "
-                f"{got[i].numel()} lanes")
+    con_err, pts_err = compare_tables("contacts", name, got, ref)
     num = ref[4]
     ok = ref[2][7] > 0.5
-    if not torch.equal(got[2][7], ref[2][7]):
-        raise AssertionError(f"contacts {name}: ok flags differ")
-    con_err = float(torch.where(ok[None], (got[2] - ref[2]).abs(),
-                                0.0).max())
-    num_ok = torch.where(ok, num, 0).cpu().numpy()
-    pts_err = float(np.abs(
-        sorted_points(got[3].cpu().numpy(), num_ok)
-        - sorted_points(ref[3].cpu().numpy(), num_ok)).max())
     hh_num = num[:n_hh]
     counts = {
         "hh_candidates": int((args[0][..., 0] < args[2].shape[0]).sum()),
@@ -420,10 +502,6 @@ def check_contacts(name, args, om, n_hh, want_face_and_edge):
           "ref/alt/num equal; "
           f"con max_abs_diff={con_err!r} pts max_abs_diff={pts_err!r}; "
           + " ".join(f"{k}={v}" for k, v in counts.items()))
-    if not con_err <= CON_TOL:
-        raise AssertionError(f"contacts {name}: con {con_err} > {CON_TOL}")
-    if not pts_err <= PTS_TOL:
-        raise AssertionError(f"contacts {name}: pts {pts_err} > {PTS_TOL}")
     if want_face_and_edge and not (counts["hh_4pt"] > 0
                                    and counts["hh_1pt"] > 0):
         raise AssertionError(f"contacts {name}: no live hull-hull face "
@@ -432,8 +510,7 @@ def check_contacts(name, args, om, n_hh, want_face_and_edge):
 
 
 def check_solver(name, cfg, state, param, cargs, jargs):
-    """Phase 5 on one scene. Returns the largest difference relative to
-    its field's tolerance, and the largest absolute one."""
+    """Phase 5 on one scene. Returns the largest difference."""
     import torch
     from madrona_tpu_torch.ops import solver_cuda
 
@@ -441,8 +518,19 @@ def check_solver(name, cfg, state, param, cargs, jargs):
     ref = solver_cuda.substep_solver_plain(cfg, state, param, *cargs,
                                            *jargs)
     torch.cuda.synchronize()
+    return compare_steps("solver", name, got, ref, state, param,
+                         cfg.solver_dynamic_range)
+
+
+def compare_steps(what, name, got, ref, state, param, dyn_range):
+    """A step kernel's out [33, N, W] against its plain version's: every
+    field within its tolerance, static rows (and rows outside the
+    dynamic range) bit-equal to their inputs, something moved. Returns
+    the largest absolute difference."""
+    import torch
+
     if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"solver {name}: bad shape or not finite")
+        raise AssertionError(f"{what} {name}: bad shape or not finite")
     fields = (("pos", 0, 3, POSE_TOL), ("rot", 3, 7, POSE_TOL),
               ("vel", 7, 10, VEL_TOL), ("omega", 10, 13, OMEGA_TOL),
               ("prev_x", 13, 16, POSE_TOL), ("prev_q", 16, 20, POSE_TOL),
@@ -452,21 +540,21 @@ def check_solver(name, cfg, state, param, cargs, jargs):
               ("presolve_w", 30, 33, OMEGA_TOL))
     diffs = {f: float((got[lo:hi] - ref[lo:hi]).abs().max())
              for f, lo, hi, _ in fields}
-    print(f"solver kernel vs plain [{name}]: W={got.shape[2]} max_abs_diff "
+    print(f"{what} kernel vs plain [{name}]: W={got.shape[2]} max_abs_diff "
           + " ".join(f"{k}={v:.3g}" for k, v in diffs.items()))
     # how heavy the tail is: worlds where some field is off by more than a
     # tenth of its tolerance (a contact branch taken the other way)
     rel = torch.stack([
         (got[lo:hi] - ref[lo:hi]).abs().amax(dim=(0, 1)) / tol
         for _, lo, hi, tol in fields]).amax(dim=0)
-    print(f"solver kernel vs plain [{name}]: {int((rel > 0.1).sum())} of "
+    print(f"{what} kernel vs plain [{name}]: {int((rel > 0.1).sum())} of "
           f"{got.shape[2]} worlds differ by more than a tenth of a tolerance")
     for f, _, _, tol in fields:
         if not diffs[f] <= tol:
-            raise AssertionError(f"solver {name}: {f} {diffs[f]} > {tol}")
+            raise AssertionError(f"{what} {name}: {f} {diffs[f]} > {tol}")
     static = param[8] > 0.5                               # [N, W]
-    if cfg.solver_dynamic_range:
-        d0, d1 = cfg.solver_dynamic_range
+    if dyn_range:
+        d0, d1 = dyn_range
         static = static.clone()
         static[:d0] = True
         static[d1:] = True
@@ -476,23 +564,22 @@ def check_solver(name, cfg, state, param, cargs, jargs):
         and torch.equal(got[20:27][:, static], state[:7][:, static])
     )
     if not same:
-        raise AssertionError(f"solver {name}: a static row moved")
+        raise AssertionError(f"{what} {name}: a static row moved")
     moved = float((got[:3] - state[:3]).abs().max())
-    print(f"solver kernel [{name}]: {int(static.sum())} static rows "
+    print(f"{what} kernel [{name}]: {int(static.sum())} static rows "
           f"bit-equal to their inputs; largest move {moved:.3g}")
     if not moved > 1e-3:
-        raise AssertionError(f"solver {name}: nothing moved")
+        raise AssertionError(f"{what} {name}: nothing moved")
     return max(diffs.values())
 
 
 def check_physics_kernels(probe):
-    """Phases 4 and 5. Returns (contacts err, solver err, what the timing
-    phase needs of the Escape Room scene)."""
-    import dataclasses
-
+    """Phases 4 to 7. Returns (contacts err, solver err, hull-hull record
+    err, fused err, what the timing phase needs of the Escape Room
+    scene)."""
     import torch
     from madrona_tpu_torch.models import escape_room as er
-    from madrona_tpu_torch.ops import solver_cuda
+    from madrona_tpu_torch.ops import broadphase_cuda, solver_cuda
     from madrona_tpu_torch.physics import api as papi
 
     env = probe.env
@@ -519,11 +606,42 @@ def check_physics_kernels(probe):
     n_joints = int((jargs[2][21] > 0.5).sum())
     print(f"solver scenes: escape_room has {n_joints} live joints in "
           f"{W} worlds")
+
+    # ---- 6: the hull-hull record kernel, both SAT tiers
+    hh_err, hh_counts = check_hh_record("escape_room", er_args, om_er)
+    cr_hh_err, cr_hh_counts = check_hh_record("crowded", cr_args, om_cr)
+    if hh_counts["edge_dirs"]["hh_live"] != er_counts["hh_live"]:
+        raise AssertionError("hh record and contacts disagree on the "
+                             "Escape Room's live hull-hull lanes")
+
+    # ---- 7: the fused-step kernel on the Escape Room state with joints
+    # and on a scene with every lane kind live
+    f_cfg = dataclasses.replace(cfg, **FUSED)
+    cands = broadphase_cuda.find_candidates_kernel(body, om_er, env.caps,
+                                                   cfg.dt)
+    f_err, f_args, f_counts = check_fused("escape_room + joints", f_cfg,
+                                          body, om_er, cands, jargs)
+    om_sp, body_sp, caps_sp = sphere_scene()
+    cands_sp = broadphase_cuda.find_candidates_kernel(body_sp, om_sp,
+                                                      caps_sp, cfg.dt)
+    spheres = {}
+    for tier in ("edge_dirs", "edge_pairs"):
+        sp_cfg = dataclasses.replace(f_cfg, sat_tier=tier)
+        e, sp_args, sp_counts = check_fused(f"spheres {tier}", sp_cfg,
+                                            body_sp, om_sp, cands_sp, (),
+                                            True)
+        f_err = max(f_err, e)
+        spheres[tier] = dict(fused_cfg=sp_cfg, fused_args=sp_args,
+                             fused_counts=sp_counts, jargs=())
     torch.cuda.synchronize()
     scene = dict(om=om_er, args=er_args, contacts=er_c, counts=er_counts,
-                 state=st, param=pr, jargs=jargs,
-                 n_joints=n_joints)
-    return max(er_err, cr_err), s_err, scene
+                 state=st, param=pr, jargs=jargs, n_joints=n_joints,
+                 hh_counts=hh_counts, fused_cfg=f_cfg, fused_args=f_args,
+                 fused_counts=f_counts, crowded_args=cr_args,
+                 crowded_om=om_cr, crowded_hh_counts=cr_hh_counts,
+                 spheres=spheres)
+    return (max(er_err, cr_err), s_err, max(hh_err, cr_hh_err), f_err,
+            scene)
 
 
 def physics_route(body, om, env, jargs):
@@ -538,7 +656,180 @@ def physics_route(body, om, env, jargs):
     return solver_cuda.substep_solver(cfg, state, param, *cargs, *jargs)
 
 
-def check_no_fallback(sim, kernels, launch=None):
+def record_points(rec):
+    """The record's points [P, 22, W] -> [16, P, W] rows of 4 x (xyz,
+    depth), the contacts kernel's layout (for sorted_points)."""
+    p, _, w = rec.shape
+    return rec[:, 6:22].reshape(p, 4, 4, w).permute(2, 1, 0, 3).reshape(
+        16, p, w)
+
+
+def check_hh_record(name, args, om):
+    """Phase 6 on one scene, in both SAT tiers. Returns (largest float
+    difference, lane counts per tier for the operation count)."""
+    import torch
+    from madrona_tpu_torch.ops import hh_narrowphase_cuda as hhc
+
+    hh, _, poses, obj = args
+    n = poses.shape[0]
+    worst, counts = 0.0, {}
+    for tier, dirs in (("edge_dirs", True), ("edge_pairs", False)):
+        got = hhc.hh_record(hh, poses, obj, om, dirs)
+        ref = hhc.hh_record_plain(hh, poses, obj, om, dirs)
+        torch.cuda.synchronize()
+        if got.shape != ref.shape:
+            raise AssertionError(f"hh record {name}: shape differs")
+        for i, f in ((0, "ref"), (1, "alt"), (2, "num")):
+            if not torch.equal(got[:, i], ref[:, i]):
+                bad = int((got[:, i] != ref[:, i]).sum())
+                raise AssertionError(f"hh record {name} {tier}: {f} differs "
+                                     f"in {bad} lanes")
+        num = ref[:, 2].to(torch.int32)
+        live = num > 0
+        nrm_err = float(torch.where(live[:, None], (got[:, 3:6]
+                                                    - ref[:, 3:6]).abs(),
+                                    0.0).max())
+        num_np = num.cpu().numpy()
+        pts_err = float(np.abs(
+            sorted_points(record_points(got).cpu().numpy(), num_np)
+            - sorted_points(record_points(ref).cpu().numpy(), num_np)).max())
+        c = {"hh_candidates": int((hh[..., 0] < n).sum()),
+             "hh_live": int(live.sum()), "hh_4pt": int((num == 4).sum()),
+             "hh_1pt": int((num == 1).sum())}
+        counts[tier] = c
+        print(f"hh record kernel vs plain [{name} {tier}]: W={num.shape[1]} "
+              f"ref/alt/num equal; normal max_abs_diff={nrm_err!r} pts "
+              f"max_abs_diff={pts_err!r}; "
+              + " ".join(f"{k}={v}" for k, v in c.items()))
+        if not nrm_err <= CON_TOL:
+            raise AssertionError(f"hh record {name}: normal {nrm_err}")
+        if not pts_err <= PTS_TOL:
+            raise AssertionError(f"hh record {name}: pts {pts_err}")
+        worst = max(worst, nrm_err, pts_err)
+    return worst, counts
+
+
+def fused_args(body, om, cands):
+    """The fused-step kernel's arguments before the joints."""
+    from madrona_tpu_torch.ops import fused_cuda
+
+    return (*fused_cuda.pack_fused(body, om), cands.hh.contiguous(),
+            cands.hp.contiguous(), cands.sp.contiguous(),
+            cands.sp_kind.contiguous(), om)
+
+
+def fused_lane_counts(cfg, args):
+    """Live lanes of the fused step's narrowphase by kind, from the plain
+    version's first half (integrate, then the tensor narrowphase): the
+    scene check and the operation count of the bound."""
+    import torch
+    from madrona_tpu_torch.ops import solver_cuda
+    from madrona_tpu_torch.physics import geo, xpbd
+    from madrona_tpu_torch.physics import narrowphase as np_
+
+    state, param, scale, obj, hh, hp, sp, sp_kind, om = args
+    body, params = solver_cuda.unpack_state(state, param)
+    pred = xpbd.integrate(body, None, cfg.dt / cfg.substeps, cfg.gravity,
+                          params)
+    ref, _, _, num, _ = np_.narrowphase_lanes(
+        pred.pos, pred.rot, scale.permute(2, 1, 0), obj.t(), om, hh, hp, sp,
+        sp_kind, sat_dirs=cfg.sat_tier == "edge_dirs")
+    n = state.shape[1]
+    ph, pp = hh.shape[1], hp.shape[1]
+    hh_num, sp_num = num[:, :ph], num[:, ph + pp:]
+    kind_live = lambda t: int(((sp_num > 0) & (sp_kind == t)).sum())  # noqa
+    kind_cand = lambda t: int(((sp[..., 0] < n) & (sp_kind == t)).sum())  # noqa
+    return {
+        "hh_candidates": int((hh[..., 0] < n).sum()),
+        "hh_live": int((hh_num > 0).sum()), "hh_1pt": int((hh_num == 1).sum()),
+        "hp_candidates": int((hp[..., 0] < n).sum()),
+        "hp_live": int((num[:, ph:ph + pp] > 0).sum()),
+        "sp_hull": kind_cand(geo.TYPE_HULL),
+        "sp_plane": kind_cand(geo.TYPE_PLANE),
+        "sp_sphere": kind_cand(geo.TYPE_SPHERE),
+        "sp_live_hull": kind_live(geo.TYPE_HULL),
+        "sp_live_plane": kind_live(geo.TYPE_PLANE),
+        "sp_live_sphere": kind_live(geo.TYPE_SPHERE),
+        "ok": int((num > 0).sum()), "points": int(num.sum()),
+        "movable": int((param[8] <= 0.5).sum()),
+    }
+
+
+def check_fused(name, cfg, body, om, cands, jargs, want_spheres=False):
+    """Phase 7 (and 11) on one scene: the kernel's narrowphase lanes
+    (its contact tables before the substeps) against the plain
+    version's, then its step. Returns (largest difference, the kernel's
+    arguments, the scene's lane counts)."""
+    import torch
+    from madrona_tpu_torch.ops import fused_cuda, solver_cuda
+
+    args = fused_args(body, om, cands)
+    got, lanes = fused_cuda.fused_step_lanes(cfg, *args, *jargs)
+    ref_lanes = fused_cuda.fused_contacts_plain(cfg, *args)
+    ref = fused_cuda.fused_step_plain(cfg, *args, *jargs)
+    torch.cuda.synchronize()
+    counts = fused_lane_counts(cfg, args)
+    print(f"fused scene [{name}]: " + " ".join(
+        f"{k}={v}" for k, v in counts.items()))
+    if want_spheres and not (counts["hh_live"] and counts["hp_live"]
+                             and counts["sp_live_hull"]
+                             and counts["sp_live_plane"]
+                             and counts["sp_live_sphere"]):
+        raise AssertionError(f"fused {name}: not every lane kind is live")
+    con_err, pts_err = compare_tables("fused lanes", name, lanes, ref_lanes)
+    ok = ref_lanes[2][7] > 0.5
+    nrm_err, avg_err, pen_err = (
+        float(torch.where(ok[None], (lanes[2][lo:hi] - ref_lanes[2][lo:hi])
+                          .abs(), 0.0).max())
+        for lo, hi in ((0, 3), (3, 6), (6, 7)))
+    print(f"fused lanes vs plain [{name}]: ref/alt/num/ok equal on "
+          f"{ok.numel()} lanes; normal max_abs_diff={nrm_err!r} average "
+          f"point {avg_err!r} penetration {pen_err!r} points {pts_err!r}")
+    err = compare_steps("fused", name, got, ref, args[0], args[1], None)
+    # where the step's difference arises: the plain substep solver on the
+    # kernel's own lanes against the kernel's step
+    spec = dataclasses.replace(cfg, solver_dynamic_range=None,
+                               solver_ref_dyn_lanes=0)
+    on_lanes = solver_cuda.substep_solver_plain(spec, args[0], args[1],
+                                                *lanes, *jargs)
+    print(f"fused kernel vs the plain substeps on its own lanes [{name}]: "
+          f"max_abs_diff {float((got - on_lanes).abs().max())!r}, the "
+          f"plain step vs the same {float((ref - on_lanes).abs().max())!r}")
+    return max(err, con_err, pts_err), args, counts
+
+
+def sphere_scene():
+    """(om, BodyState [W, 21], caps): a plane, two box sizes and spheres,
+    rotated and scaled, crowded (the JAX package's fused_case objects);
+    caps 8/8/8."""
+    from madrona_tpu_torch.physics import bodies as pb
+    from madrona_tpu_torch.physics import broadphase as bp
+    from madrona_tpu_torch.physics import geo
+
+    reg = pb.ObjectRegistry()
+    reg.add_plane()
+    reg.add_hull(geo.box_hull((0.5, 0.5, 0.5)), mass=1.0)
+    reg.add_hull(geo.box_hull((0.4, 0.8, 0.3)), mass=2.5)
+    reg.add_sphere(0.45, mass=0.8)
+    om = reg.build().to(DEV)
+    body = random_scene(np.random.RandomState(23), om, 4, 21, True)
+    return om, body, bp.CandidateCaps(hull_hull=8, hull_plane=8, sphere_any=8)
+
+
+# the physics tiers of this slice, as PhysicsConfig changes of an env
+FUSED = dict(megakernel_fused=True, megakernel=False, narrowphase="xla")
+SUBLANE = dict(narrowphase="kernel_sublane")
+LANE_MAJOR = dict(narrowphase="kernel")
+
+
+def with_physics(env, **change):
+    """``env`` with its PhysicsConfig changed, as the JAX package's tests
+    change it."""
+    env.cfg = dataclasses.replace(env.cfg, **change)
+    return env
+
+
+def check_no_fallback(sim, kernels, launch=None, label=None):
     """With the library of every kernel in ``kernels`` unloaded, missing
     on disk and no compiler to be found, a step of ``sim`` (on the card)
     over ``launch`` must raise: it may not go on with the plain
@@ -552,7 +843,7 @@ def check_no_fallback(sim, kernels, launch=None):
     saved = (cuda_build._nvcc, cuda_build.library_path,
              [k._fn for k in kernels])
     w = sim.executor.num_worlds
-    what = f"{sim.env.name} {launch or sim.env.default_launch}"
+    what = label or f"{sim.env.name} {launch or sim.env.default_launch}"
     try:
         cuda_build._nvcc = no_nvcc
         cuda_build.library_path = (
@@ -703,9 +994,9 @@ def arrange_hide_seek(sim):
 
 
 def check_hide_seek_physics(sim):
-    """Phase 9: B1, B2 and B3 against their plain versions on the
+    """Phase 11: B1, B2, B3 and B8 against their plain versions on the
     arranged Hide & Seek state. Returns (largest differences of the
-    three, what the timing phase needs)."""
+    four, what the timing phase needs)."""
     import torch
     from madrona_tpu_torch.models import hide_seek as hs
     from madrona_tpu_torch.ops import broadphase_cuda, solver_cuda
@@ -744,9 +1035,13 @@ def check_hide_seek_physics(sim):
     n_joints = int((jargs[2][21] > 0.5).sum())
     print(f"solver scenes: hide_seek has {n_joints} live joints in {w} "
           f"worlds, {4 * w - n_joints} inactive slots")
-    return (0.0, co_err, so_err), dict(
+    f_cfg = dataclasses.replace(cfg, **FUSED)
+    fu_err, f_args, f_counts = check_fused("hide_seek + joint", f_cfg, body,
+                                           om, got, jargs)
+    return (0.0, co_err, so_err, fu_err), dict(
         body=body, om=om, c_args=c_args, c_out=c_out, state=st, param=pr,
-        jargs=jargs)
+        jargs=jargs, fused_cfg=f_cfg, fused_args=f_args,
+        fused_counts=f_counts)
 
 
 def raycast_compare(name, planes, opts):
@@ -846,10 +1141,11 @@ def check_exports(outs, shapes, what):
                 f"{what}: {name} shape {tuple(outs[-1][name].shape)}")
 
 
-def hide_seek_path(make_sim, make_env, w, counters, want, what, shapes, card):
-    """Phase 10 for one launch: the counted run, its checks, a fresh
-    sim's bit-identical rerun, ms by node. Returns (sim, per-step
-    exports, env-steps/s, ms/step, launches)."""
+def check_path(make_sim, make_env, w, counters, want, what, shapes, card):
+    """Phases 12 and 14 for one path: the counted run (each counter's
+    launches must equal its ``want``), its checks, a fresh sim's
+    bit-identical rerun, ms by node. Returns (sim, per-step exports,
+    env-steps/s, ms/step, launches)."""
     import torch
 
     acts = make_env().random_actions(np.random.RandomState(0), STEPS, w)
@@ -879,8 +1175,52 @@ def hide_seek_path(make_sim, make_env, w, counters, want, what, shapes, card):
     return sim, outs, sps, ms, launches
 
 
+def check_card_vs_cpu(make_sim, make_env, what):
+    """Phases 9 and 15: ``make_env()`` at 8 worlds on the card against the
+    port's CPU path: int exports equal, float exports within SMALL_TOL."""
+    import torch
+
+    acts = make_env().random_actions(np.random.RandomState(5), SMALL_STEPS,
+                                     SMALL_W)
+    sims = {d: make_sim(make_env(), num_worlds=SMALL_W, seed=3, device=d)
+            for d in ("cpu", DEV)}
+    worst = 0.0
+    for i in range(SMALL_STEPS):
+        o = {d: s.step({"action": acts[i].to(d),
+                        "reset": torch.zeros(SMALL_W, dtype=torch.int32,
+                                             device=d)})
+             for d, s in sims.items()}
+        for name, g in o[DEV].items():
+            c, g = o["cpu"][name], g.cpu()
+            if g.is_floating_point():
+                worst = max(worst, float((g - c).abs().max()))
+            elif not torch.equal(g, c):
+                raise AssertionError(f"{what} small run step {i}: {name} "
+                                     "differs")
+    if not worst <= SMALL_TOL:
+        raise AssertionError(f"{what} card vs CPU: {worst} > {SMALL_TOL}")
+    print(f"{what} card vs CPU path: {SMALL_W} worlds x {SMALL_STEPS} steps, "
+          f"int exports equal, float max_abs_diff={worst!r}")
+
+
+def step_ms(make_sim, make_env, acts):
+    """ms per step of a fresh sim of ``make_env()`` at W worlds over
+    steps 2..STEPS (host clock, synchronized at both ends)."""
+    import torch
+
+    sim = make_sim(make_env(), num_worlds=W, seed=0, device=DEV)
+    reset = torch.zeros((W,), dtype=torch.int32, device=DEV)
+    sim.step({"action": acts[0], "reset": reset})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(1, STEPS):
+        sim.step({"action": acts[i], "reset": reset})
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / (STEPS - 1)
+
+
 def check_hide_seek_small(make_sim, HideSeek):
-    """Phase 11: 8 worlds on the card against the port's CPU path."""
+    """Phase 13: 8 worlds on the card against the port's CPU path."""
     import torch
 
     acts = HideSeek.random_actions(np.random.RandomState(5), SMALL_STEPS,
@@ -925,8 +1265,8 @@ def main() -> int:
     from madrona_tpu_torch.models.escape_room import EscapeRoom
     from madrona_tpu_torch.models.hide_seek import HideSeek
     from madrona_tpu_torch.ops import (
-        broadphase_cuda, contacts_cuda, cuda_build, lidar_cuda, raycast_cuda,
-        solver_cuda,
+        broadphase_cuda, contacts_cuda, cuda_build, fused_cuda,
+        hh_narrowphase_cuda, lidar_cuda, raycast_cuda, solver_cuda,
     )
 
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
@@ -937,8 +1277,7 @@ def main() -> int:
 
     # ---- 1. build
     t0 = time.perf_counter()
-    libs = cuda_build.build(["broadphase.cu", "contacts.cu", "solver.cu",
-                             "lidar.cu", "raycast.cu"])
+    libs = cuda_build.build(cuda_build.SOURCES)
     print(f"build: {time.perf_counter() - t0:.1f} s -> "
           + ", ".join(p.name for p in libs.values()))
     for src, log in cuda_build.BUILD_LOG.items():
@@ -946,7 +1285,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
 
-    # ---- 2-5: kernels against their plain versions, on random scenes
+    # ---- 2-7: kernels against their plain versions, on random scenes
     # and on a real Escape Room state (a probe sim, 3 steps in)
     acts = EscapeRoom.random_actions(np.random.RandomState(0), STEPS, W)
     acts = acts.to(DEV)
@@ -957,9 +1296,9 @@ def main() -> int:
                                          device=DEV)})
     bp_err = check_broadphase(probe)
     li_err = check_lidar(probe)
-    co_err, so_err, scene = check_physics_kernels(probe)
+    co_err, so_err, hh_err, fu_err, scene = check_physics_kernels(probe)
 
-    # ---- 6: the main path, its kernel launches counted
+    # ---- 8: the main path, its kernel launches counted
     kernels = [broadphase_cuda.KERNEL, contacts_cuda.KERNEL,
                solver_cuda.KERNEL, lidar_cuda.KERNEL]
     sim, outs, secs, launches = run_main_path(make_sim, EscapeRoom, acts,
@@ -992,34 +1331,15 @@ def main() -> int:
     per_node = node_times(sim, acts)
     print("main path, ms/step by node (synchronized): " + ", ".join(
         f"{k} {v * 1e3:.2f}" for k, v in per_node.items()) + f" ({card})")
+    del outs, outs2
 
-    # ---- 7: the card against the port's CPU path, small
-    small_acts = EscapeRoom.random_actions(np.random.RandomState(5),
-                                           SMALL_STEPS, SMALL_W)
-    sims = {d: make_sim(EscapeRoom(), num_worlds=SMALL_W, seed=3, device=d)
-            for d in ("cpu", DEV)}
-    worst = 0.0
-    for i in range(SMALL_STEPS):
-        o = {d: s.step({"action": small_acts[i].to(d),
-                        "reset": torch.zeros(SMALL_W, dtype=torch.int32,
-                                             device=d)})
-             for d, s in sims.items()}
-        for name, g in o[DEV].items():
-            c, g = o["cpu"][name], g.cpu()
-            if g.is_floating_point():
-                worst = max(worst, float((g - c).abs().max()))
-            elif not torch.equal(g, c):
-                raise AssertionError(f"small run step {i}: {name} differs")
-    if not worst <= SMALL_TOL:
-        raise AssertionError(f"card vs CPU: {worst} > {SMALL_TOL}")
-    print(f"card vs CPU path: {SMALL_W} worlds x {SMALL_STEPS} steps, "
-          f"int exports equal, float max_abs_diff={worst!r}")
-
+    # ---- 9: the card against the port's CPU path, small; no fallback
+    check_card_vs_cpu(make_sim, EscapeRoom, "escape_room")
     check_no_fallback(
         make_sim(EscapeRoom(), num_worlds=SMALL_W, seed=0, device=DEV),
         kernels)
 
-    # ---- 8: the raycast kernel against its plain version, on a real
+    # ---- 10: the raycast kernel against its plain version, on a real
     # Hide & Seek state (a probe sim, 3 steps in) and on synthetic planes
     def pixels():
         return HideSeek(render_size=HS_RENDER)
@@ -1036,17 +1356,18 @@ def main() -> int:
     ra_err, ray_scene = check_raycast(hs_probe)
     del hs_probe
 
-    # ---- 9: B1-B3 on an arranged Hide & Seek state
+    # ---- 11: B1-B3 and B8 on an arranged Hide & Seek state
     hs_state_probe = make_sim(state_only(), num_worlds=HS_STATE_W, seed=1,
                               device=DEV)
     hs_state_probe.step({})
     hs_errs, hs_scene = check_hide_seek_physics(hs_state_probe)
+    fu_err = max(fu_err, hs_errs[3])
     del hs_state_probe
 
-    # ---- 10: Hide & Seek's two launches, their kernel launches counted
+    # ---- 12: Hide & Seek's two launches, their kernel launches counted
     hs_kernels = [broadphase_cuda.KERNEL, contacts_cuda.KERNEL,
                   solver_cuda.KERNEL, raycast_cuda.KERNEL, lidar_cuda.KERNEL]
-    _, hs_outs, _, _, hs_launches = hide_seek_path(
+    _, hs_outs, _, _, hs_launches = check_path(
         make_sim, pixels, HS_W, hs_kernels, [STEPS] * 4 + [0],
         "hide_seek pixels", {
             "rgb": (HS_W, 4, HS_RENDER, HS_RENDER, 3),
@@ -1062,19 +1383,70 @@ def main() -> int:
             and 0.5 < hit < 1.0):
         raise AssertionError("hide_seek pixels: rgb or depth out of range")
     del hs_outs, rgb, depth
-    hide_seek_path(
-        make_sim, state_only, HS_STATE_W, hs_kernels, [STEPS] * 3 + [0, 0],
-        "hide_seek state only", {
-            "flat_obs": (HS_STATE_W, 4, 46), "self_obs": (HS_STATE_W, 4, 10),
-            "visible": (HS_STATE_W, 2, 2)}, card)
+    hs_shapes = {"flat_obs": (HS_STATE_W, 4, 46),
+                 "self_obs": (HS_STATE_W, 4, 10),
+                 "visible": (HS_STATE_W, 2, 2)}
+    check_path(make_sim, state_only, HS_STATE_W, hs_kernels,
+               [STEPS] * 3 + [0, 0], "hide_seek state only", hs_shapes, card)
 
-    # ---- 11: Hide & Seek, the card against the CPU path; no fallback
+    # ---- 13: Hide & Seek, the card against the CPU path; no fallback
     small_hs = check_hide_seek_small(make_sim, HideSeek)
     check_no_fallback(small_hs, [raycast_cuda.KERNEL], launch=("render",))
     check_no_fallback(small_hs, hs_kernels[:3], launch=("step",))
+    del small_hs
     torch.cuda.empty_cache()
 
-    # ---- 12: times at the main paths' shapes
+    # ---- 14: the physics tiers of this slice at full width: each path's
+    # launches of all seven kernels counted
+    all_k = [broadphase_cuda.KERNEL, contacts_cuda.KERNEL,
+             solver_cuda.KERNEL, lidar_cuda.KERNEL, raycast_cuda.KERNEL,
+             hh_narrowphase_cuda.KERNEL, fused_cuda.KERNEL]
+    er_shapes = {"flat_obs": (W, 2, 101)}
+    path_launches = {}
+    for what, make_env, w, want, shapes in (
+        ("escape_room fused", lambda: with_physics(EscapeRoom(), **FUSED),
+         W, (STEPS, 0, 0, STEPS, 0, 0, STEPS), er_shapes),
+        ("hide_seek state only fused",
+         lambda: with_physics(state_only(), **FUSED), HS_STATE_W,
+         (STEPS, 0, 0, 0, 0, 0, STEPS), hs_shapes),
+        ("escape_room kernel_sublane",
+         lambda: with_physics(EscapeRoom(), **SUBLANE), W,
+         (STEPS, 0, STEPS, STEPS, 0, STEPS, 0), er_shapes),
+        ("escape_room kernel", lambda: with_physics(EscapeRoom(), **LANE_MAJOR),
+         W, (STEPS, 0, STEPS, STEPS, 0, STEPS, 0), er_shapes),
+    ):
+        _, p_outs, _, _, path_launches[what] = check_path(
+            make_sim, make_env, w, all_k, want, what, shapes, card)
+        del p_outs
+        torch.cuda.empty_cache()
+
+    def split_er():
+        return EscapeRoom()
+
+    def fused_er():
+        return with_physics(EscapeRoom(), **FUSED)
+
+    turns = [("split", step_ms(make_sim, split_er, acts)),
+             ("fused", step_ms(make_sim, fused_er, acts)),
+             ("fused", step_ms(make_sim, fused_er, acts)),
+             ("split", step_ms(make_sim, split_er, acts))]
+    print(f"escape_room step, {W} worlds, in turns (ms/step): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in turns) + f" ({card})")
+
+    # ---- 15: the fused path, the card against the CPU path; no fallback
+    # on the fused and the two hull-hull record paths
+    check_card_vs_cpu(make_sim, fused_er, "escape_room fused")
+    check_no_fallback(
+        make_sim(fused_er(), num_worlds=SMALL_W, seed=0, device=DEV),
+        [fused_cuda.KERNEL])
+    for what, change in (("kernel_sublane", SUBLANE), ("kernel", LANE_MAJOR)):
+        check_no_fallback(
+            make_sim(with_physics(EscapeRoom(), **change),
+                     num_worlds=SMALL_W, seed=0, device=DEV),
+            [hh_narrowphase_cuda.KERNEL], label=f"escape_room {what}")
+    torch.cuda.empty_cache()
+
+    # ---- 16: times at the main paths' shapes
     from madrona_tpu_torch.physics import api as papi
     from madrona_tpu_torch.physics import broadphase as bp
 
@@ -1106,7 +1478,9 @@ def main() -> int:
     # contacts and solver on the probe's Escape Room scene (phases 4, 5)
     c_in, c_out, cnt = scene["args"], scene["contacts"], scene["counts"]
     om_s = scene["om"]
-    co_bytes = nbytes(*c_in, om_s.hull_pack, om_s.hull_dirs_pack, *c_out)
+    co_bytes = (nbytes(c_in[0], c_in[1], om_s.hull_pack,
+                       om_s.hull_dirs_pack, *c_out)
+                + referenced_row_bytes(c_in[2], c_in[3], c_in[0], c_in[1]))
     co_ops = (HH_OPS_CANDIDATE * cnt["hh_candidates"]
               + HH_OPS_FACE * (cnt["hh_live"] - cnt["hh_1pt"])
               + HH_OPS_EDGE * cnt["hh_1pt"]
@@ -1118,7 +1492,8 @@ def main() -> int:
     cfg = env.cfg
     s_in = (scene["state"], scene["param"], *c_out, *scene["jargs"])
     s_out = solver_cuda.substep_solver(cfg, *s_in)
-    so_bytes = nbytes(*s_in, s_out)
+    so_bytes = (nbytes(scene["state"], scene["param"], *scene["jargs"], s_out)
+                + live_lane_bytes(*c_out))
     live_points = int(torch.where(c_out[2][7] > 0.5, c_out[4], 0).sum())
     d0, d1 = cfg.solver_dynamic_range
     so_ops = cfg.substeps * (
@@ -1137,7 +1512,81 @@ def main() -> int:
     print(f"physics route (B1 + integrate + packs + B2 + B3): "
           f"{route_ms:.4f} ms")
 
-    # raycast at the pixel path's shapes (phase 8's real scene)
+    # the hull-hull record (phase 6's Escape Room scene): B6 in the
+    # edge_dirs tier, B7 in the edge_pairs tier; on the crowded box scene
+    # their times and bounds only
+    def hh_cost(args, om_, h_cnt, dirs, plain_iters):
+        hh_in = (args[0], args[2], args[3])
+        rec = hh_narrowphase_cuda.hh_record(*hh_in, om_, dirs)
+        h_bytes = (nbytes(hh_in[0], om_.hull_pack, rec)
+                   + (nbytes(om_.hull_dirs_pack) if dirs else 0)
+                   + referenced_row_bytes(hh_in[1], hh_in[2], hh_in[0]))
+        face = h_cnt["hh_live"] - h_cnt["hh_1pt"]
+        h_ops = (HH_OPS_FACE * face + (
+            HH_OPS_CANDIDATE * h_cnt["hh_candidates"]
+            + HH_OPS_EDGE * h_cnt["hh_1pt"] if dirs else
+            HH_OPS_CANDIDATE_PAIRS * h_cnt["hh_candidates"]
+            + HH_OPS_EDGE_PAIRS * h_cnt["hh_1pt"]))
+        h_ms = timed(lambda: hh_narrowphase_cuda.hh_record(*hh_in, om_,
+                                                           dirs))
+        h_plain_ms = (timed(lambda: hh_narrowphase_cuda.hh_record_plain(
+            *hh_in, om_, dirs), plain_iters, 1) if plain_iters else None)
+        return h_ms, h_plain_ms, h_bytes, h_ops
+
+    hh_rows = {}
+    for tier, dirs in (("edge_dirs", True), ("edge_pairs", False)):
+        hh_rows[tier] = hh_cost(c_in, om_s, scene["hh_counts"][tier], dirs,
+                                PLAIN_PHYSICS_ITERS)
+        k_ms, _, b, ops = hh_cost(scene["crowded_args"], scene["crowded_om"],
+                                  scene["crowded_hh_counts"][tier], dirs, 0)
+        b_ms, b_by = bound(b, ops)
+        print(f"hh_narrowphase {tier} at the crowded scene (W={W}, P=8): "
+              f"{k_ms:.4f} ms/launch, bound {b_ms:.5f} ms ({b_by}: {b} B, "
+              f"{ops} ops) ({card})")
+
+    # the fused step: the Escape Room state with joints (phase 7) and the
+    # arranged Hide & Seek state (phase 11)
+    def fused_cost(scene_):
+        f_cfg, f_args, fc = (scene_["fused_cfg"], scene_["fused_args"],
+                             scene_["fused_counts"])
+        f_in = (*f_args[:8], f_args[8].hull_pack, f_args[8].hull_dirs_pack,
+                *scene_["jargs"])
+        out = fused_cuda.fused_step(f_cfg, *f_args, *scene_["jargs"])
+        f_bytes = nbytes(*f_in, out)
+        n_live_j = (int((scene_["jargs"][2][21] > 0.5).sum())
+                    if scene_["jargs"] else 0)
+        f_ops = (
+            SOLVER_OPS_BODY * fc["movable"]
+            + HH_OPS_CANDIDATE * fc["hh_candidates"]
+            + HH_OPS_FACE * (fc["hh_live"] - fc["hh_1pt"])
+            + HH_OPS_EDGE * fc["hh_1pt"]
+            + HP_OPS_CANDIDATE * fc["hp_candidates"]
+            + HP_OPS_CONTACT * fc["hp_live"]
+            + SPHERE_OPS_HULL * fc["sp_hull"]
+            + SPHERE_OPS_PLANE * fc["sp_plane"]
+            + SPHERE_OPS_SPHERE * fc["sp_sphere"]
+            + f_cfg.substeps * (
+                SOLVER_OPS_BODY * fc["movable"]
+                + (SOLVER_OPS_CONTACT_POS * f_cfg.jacobi_iters
+                   + SOLVER_OPS_CONTACT_VEL) * fc["ok"]
+                + SOLVER_OPS_POINT * fc["points"]
+                + SOLVER_OPS_JOINT * n_live_j))
+        k_ms = timed(lambda: fused_cuda.fused_step(f_cfg, *f_args,
+                                                   *scene_["jargs"]))
+        pl_ms = timed(lambda: fused_cuda.fused_step_plain(
+            f_cfg, *f_args, *scene_["jargs"]), PLAIN_PHYSICS_ITERS, 1)
+        return k_ms, pl_ms, f_bytes, f_ops
+
+    fu_ms, fu_plain_ms, fu_bytes, fu_ops = fused_cost(scene)
+    hs_fu = fused_cost(hs_scene)
+    for tier, sp_scene in scene["spheres"].items():
+        k_ms, pl_ms, b, ops = fused_cost(sp_scene)
+        b_ms, b_by = bound(b, ops)
+        print(f"fused_step {tier} at the sphere scene (W={W}, N=21, caps "
+              f"8/8/8): {k_ms:.4f} ms/launch, plain {pl_ms:.4f} ms, bound "
+              f"{b_ms:.5f} ms ({b_by}: {b} B, {ops} ops) ({card})")
+
+    # raycast at the pixel path's shapes (phase 10's real scene)
     r_planes, r_opts, n_rays = ray_scene
     r_out = raycast_cuda.raytrace(*r_planes, **r_opts)
     ra_bytes = nbytes(*r_planes, r_out)
@@ -1153,7 +1602,7 @@ def main() -> int:
     ra_plain_ms = timed(
         lambda: raycast_cuda.raytrace_plain(*r_planes, **r_opts), 2, 1)
 
-    # B1-B3 at Hide & Seek's shapes (phase 9's arranged scene, 16,384
+    # B1-B3 at Hide & Seek's shapes (phase 11's arranged scene, 16,384
     # worlds): times only, beside the rows of the Escape Room shapes
     hb, hom, hcfg = hs_scene["body"], hs_scene["om"], HideSeek(pixels=False)
     h_in = (hs_scene["state"], hs_scene["param"], *hs_scene["c_out"],
@@ -1174,41 +1623,54 @@ def main() -> int:
             timed(lambda: solver_cuda.substep_solver(hcfg.cfg, *h_in)),
             timed(lambda: solver_cuda.substep_solver_plain(hcfg.cfg, *h_in),
                   PLAIN_PHYSICS_ITERS, 1)),
+        "fused_step": hs_fu[:2],
     }
     for (name, (k_ms, pl_ms)), err in zip(hs_ms.items(), hs_errs):
         print(f"{name} at the hide_seek shape (W={HS_STATE_W}, N=14, caps "
               f"7/9, J=4): {k_ms:.4f} ms/launch, plain {pl_ms:.4f} ms, "
               f"max_abs_diff {err!r} ({card})")
-
-    def bound(b, ops):
-        t_bytes, t_ops = b / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
-        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                     else "operations")
+    hs_fu_b, hs_fu_by = bound(hs_fu[2], hs_fu[3])
+    print(f"fused_step at the hide_seek shape: bound {hs_fu_b:.5f} ms "
+          f"({hs_fu_by}: {hs_fu[2]} B, {hs_fu[3]} ops)")
 
     rows = []
-    for name, src, rep, k, err, ms, plain_ms, b, ops in (
+    sub = path_launches["escape_room kernel_sublane"]
+    lane = path_launches["escape_room kernel"]
+    fused_l = path_launches["escape_room fused"]
+    i_hh, i_fu = all_k.index(hh_narrowphase_cuda.KERNEL), all_k.index(
+        fused_cuda.KERNEL)
+    for name, src, rep, n_launch, err, ms, plain_ms, b, ops in (
         ("broadphase", "madrona_tpu_torch/csrc/broadphase.cu",
-         "madrona_tpu/ops/broadphase_pallas.py:160", broadphase_cuda.KERNEL,
+         "madrona_tpu/ops/broadphase_pallas.py:160",
+         launches[kernels.index(broadphase_cuda.KERNEL)],
          bp_err, bp_ms, bp_plain_ms, bp_bytes, bp_ops),
         ("contacts", "madrona_tpu_torch/csrc/contacts.cu",
-         "madrona_tpu/ops/physics_megakernel.py:560", contacts_cuda.KERNEL,
+         "madrona_tpu/ops/physics_megakernel.py:560",
+         launches[kernels.index(contacts_cuda.KERNEL)],
          co_err, co_ms, co_plain_ms, co_bytes, co_ops),
         ("substep_solver", "madrona_tpu_torch/csrc/solver.cu",
-         "madrona_tpu/ops/solver_pallas.py:709", solver_cuda.KERNEL,
+         "madrona_tpu/ops/solver_pallas.py:709",
+         launches[kernels.index(solver_cuda.KERNEL)],
          so_err, so_ms, so_plain_ms, so_bytes, so_ops),
         ("lidar", "madrona_tpu_torch/csrc/lidar.cu",
-         "madrona_tpu/ops/lidar_pallas.py:53", lidar_cuda.KERNEL,
+         "madrona_tpu/ops/lidar_pallas.py:53",
+         launches[kernels.index(lidar_cuda.KERNEL)],
          li_err, li_ms, li_plain_ms, li_bytes, li_ops),
         ("raycast", "madrona_tpu_torch/csrc/raycast.cu",
-         "madrona_tpu/ops/raycast_pallas.py:150", raycast_cuda.KERNEL,
+         "madrona_tpu/ops/raycast_pallas.py:150",
+         hs_launches[hs_kernels.index(raycast_cuda.KERNEL)],
          ra_err, ra_ms, ra_plain_ms, ra_bytes, ra_ops),
+        ("hh_narrowphase_sublane", "madrona_tpu_torch/csrc/hh_narrowphase.cu",
+         "madrona_tpu/ops/narrowphase_pallas.py:1227", sub[i_hh], hh_err,
+         *hh_rows["edge_dirs"]),
+        ("hh_narrowphase", "madrona_tpu_torch/csrc/hh_narrowphase.cu",
+         "madrona_tpu/ops/narrowphase_pallas.py:403", lane[i_hh], hh_err,
+         *hh_rows["edge_pairs"]),
+        ("fused_step", "madrona_tpu_torch/csrc/fused_step.cu",
+         "madrona_tpu/ops/physics_megakernel.py:287", fused_l[i_fu], fu_err,
+         fu_ms, fu_plain_ms, fu_bytes, fu_ops),
     ):
         b_ms, b_by = bound(b, ops)
-        # a kernel's launches: from the main path that runs it (raycast:
-        # Hide & Seek with pixels; the others: the Escape Room)
-        n_launch = (hs_launches[hs_kernels.index(k)]
-                    if k is raycast_cuda.KERNEL
-                    else launches[kernels.index(k)])
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": n_launch, "max_abs_err": err,
@@ -1223,6 +1685,15 @@ def main() -> int:
         "count": torch.cuda.device_count(),
     }}))
     return 0
+
+
+def bound(b, ops):
+    """(least ms the card could take, "bytes" or "operations"): the
+    larger of the bytes over the memory rate and the operations over the
+    float32 rate."""
+    t_bytes, t_ops = b / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
 
 
 if __name__ == "__main__":

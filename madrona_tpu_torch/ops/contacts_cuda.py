@@ -14,7 +14,7 @@ returns are the substep-solver kernel's contact inputs as they stand
   pts [PTS_F, C, W]               4 x (xyz, depth)
 
 with C = PH + PP lanes: the hull-hull candidates, then the hull-plane
-ones. Inputs: ``hh`` [W, PH, 2] and ``hp`` [W, PP, 2] int32 candidate
+ones. The hull-hull SAT runs either tier of ``PhysicsConfig.sat_tier``. Inputs: ``hh`` [W, PH, 2] and ``hp`` [W, PP, 2] int32 candidate
 rows as the broadphase leaves them (hp: hull row, plane row), ``poses``
 [N, 10, W] (pos | rot | scale, at the predicted poses), ``obj`` [N, W]
 int32 object ids, and the ObjectManager of the tensors' device.
@@ -40,9 +40,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = CudaKernel(
     "contacts.cu", "contacts_launch",
-    [_P] * 11 + [_I] * 10 + [_P],
+    [_P] * 11 + [_I] * 11 + [_P],
 )
-# the kernel's per-thread hull tables are sized for these
+# the narrowphase kernels' per-thread hull tables (csrc/sat.cuh) are
+# sized for these
 MAX_DIMS = (8, 6, 4, 12)      # verts, faces, verts per face, edges
 MAX_DIRS = 6
 MAX_SHARED = 48 * 1024
@@ -55,12 +56,13 @@ def pack_poses(pred, obj_id):
     return nb.permute(1, 2, 0).contiguous(), obj_id.t().contiguous()
 
 
-def contacts_plain(hh, hp, poses, obj, om):
+def contacts_plain(hh, hp, poses, obj, om, edge_dirs=True):
     """The plain version: the tensor narrowphase on the same lanes, then
     the manifold reduction, in the kernel's layout."""
     nb = poses.permute(2, 0, 1)                                # [W, N, 10]
     ref, alt, points, num, normal = np_.narrowphase_lanes(
-        nb[..., 0:3], nb[..., 3:7], nb[..., 7:10], obj.t(), om, hh, hp
+        nb[..., 0:3], nb[..., 3:7], nb[..., 7:10], obj.t(), om, hh, hp,
+        sat_dirs=edge_dirs,
     )
     return pack_contacts(xpbd.Contacts(
         ref=ref, alt=alt, points=points, num=num, normal=normal,
@@ -68,7 +70,23 @@ def contacts_plain(hh, hp, poses, obj, om):
     ))
 
 
-def _launch(hh, hp, poses, obj, om):
+def check_tables(om):
+    """Raise unless the ObjectManager's hull tables fit the per-thread
+    tables of the narrowphase kernels (csrc/sat.cuh) and their shared
+    memory; a larger hull is refused, never truncated."""
+    n_obj, k = om.hull_pack.shape
+    kd = om.hull_dirs_pack.shape[1]
+    dims, d = tuple(om.hull_dims), om.n_edge_dirs
+    if any(x > m for x, m in zip(dims, MAX_DIMS)) or d > MAX_DIRS:
+        raise ValueError(
+            f"the narrowphase kernels take hull dims <= {MAX_DIMS} and <= "
+            f"{MAX_DIRS} edge directions, got {dims} and {d}"
+        )
+    if n_obj * (k + kd) * 4 > MAX_SHARED:
+        raise ValueError("hull tables exceed the kernels' shared memory")
+
+
+def _launch(hh, hp, poses, obj, om, edge_dirs=True):
     n, _, w = poses.shape
     ph, pp = hh.shape[1], hp.shape[1]
     c = ph + pp
@@ -81,14 +99,8 @@ def _launch(hh, hp, poses, obj, om):
     kd = om.hull_dirs_pack.shape[1]
     check_tensor(om.hull_pack, "hull_pack", f32, (n_obj, k))
     check_tensor(om.hull_dirs_pack, "hull_dirs_pack", f32, (n_obj, kd))
+    check_tables(om)
     dims, d = tuple(om.hull_dims), om.n_edge_dirs
-    if any(x > m for x, m in zip(dims, MAX_DIMS)) or d > MAX_DIRS:
-        raise ValueError(
-            f"contacts kernel takes hull dims <= {MAX_DIMS} and <= "
-            f"{MAX_DIRS} edge directions, got {dims} and {d}"
-        )
-    if n_obj * (k + kd) * 4 > MAX_SHARED:
-        raise ValueError("hull tables exceed the kernel's shared memory")
     dev = poses.device
     ref = torch.empty((c, w), dtype=i32, device=dev)
     alt = torch.empty((c, w), dtype=i32, device=dev)
@@ -101,14 +113,15 @@ def _launch(hh, hp, poses, obj, om):
         ref.data_ptr(), alt.data_ptr(), con.data_ptr(), pts.data_ptr(),
         num.data_ptr(),
         n, w, ph, pp, n_obj, dims[0], dims[1], dims[2], dims[3], d,
-        stream_ptr(),
+        0 if edge_dirs else 1, stream_ptr(),
     )
     return ref, alt, con, pts, num
 
 
-def contacts(hh, hp, poses, obj, om):
+def contacts(hh, hp, poses, obj, om, edge_dirs=True):
     """(ref, alt, con, pts, num) of the candidate lanes: the kernel on
-    CUDA, the plain version on a CPU tensor."""
+    CUDA, the plain version on a CPU tensor. ``edge_dirs`` picks the SAT
+    tier (PhysicsConfig.sat_tier == "edge_dirs"), else edge pairs."""
     if poses.device.type == "cpu":
-        return contacts_plain(hh, hp, poses, obj, om)
-    return _launch(hh, hp, poses, obj, om)
+        return contacts_plain(hh, hp, poses, obj, om, edge_dirs)
+    return _launch(hh, hp, poses, obj, om, edge_dirs)

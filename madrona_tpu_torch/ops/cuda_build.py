@@ -3,8 +3,9 @@
 Each source compiles with ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, loaded with ctypes. The build runs at
 first use, into ``madrona_tpu_torch/_build/`` (git-ignored), keyed by a
-hash of the source and the flags, so a fresh checkout builds everything
-on its first call and later calls load the cached library.
+hash of the source, every ``csrc`` header it includes and the flags, so a
+fresh checkout builds everything on its first call, later calls load the
+cached library, and an edited header builds its sources anew.
 :func:`build` starts one ``nvcc`` per source, all at once.
 
 Every C entry point takes device pointers and the stream as
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -42,7 +44,11 @@ SOURCE_FLAGS = {
     "contacts.cu": ["--fmad=false"],
     "solver.cu": ["--fmad=false"],
     "raycast.cu": ["--fmad=false"],
+    "hh_narrowphase.cu": ["--fmad=false"],
+    "fused_step.cu": ["--fmad=false"],
 }
+SOURCES = tuple(SOURCE_FLAGS)
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
 def _nvcc() -> str:
@@ -56,9 +62,24 @@ def _flags(source: str) -> List[str]:
     return BASE_FLAGS + SOURCE_FLAGS.get(source, [])
 
 
+def includes(source: str) -> List[str]:
+    """``source`` and every csrc file it includes with quotes, directly or
+    through another header, each once, in the order first met."""
+    seen = [source]
+    for name in seen:
+        for inc in _INCLUDE.findall((CSRC / name).read_text()):
+            if inc not in seen and (CSRC / inc).exists():
+                seen.append(inc)
+    return seen
+
+
 def library_path(source: str) -> Path:
-    """Where the library of ``source`` lives, keyed by content + flags."""
-    h = hashlib.sha256((CSRC / source).read_bytes())
+    """Where the library of ``source`` lives, keyed by the content of the
+    source and its headers, and the flags."""
+    h = hashlib.sha256()
+    for name in includes(source):
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
     h.update(" ".join(_flags(source)).encode())
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 

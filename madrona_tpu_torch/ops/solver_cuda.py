@@ -122,14 +122,12 @@ def unpack_out(body, out):
     )
 
 
-def substep_solver_plain(cfg, state, param, ref, alt, con, pts, num,
-                         je1=None, je2=None, jnt=None):
-    """The plain version: the same buffers through the tensor solver.
-    ``cfg`` is the step's PhysicsConfig."""
-    h = cfg.dt / cfg.substeps
+def unpack_state(state, param):
+    """(BodyState, per-body params) of packed state and param buffers, as
+    the plain solver reads them; scratch fields zero, no scale or
+    object ids."""
     s = state.permute(2, 1, 0)
     p = param.permute(2, 1, 0)
-    w, n = s.shape[:2]
     flag = lambda i: p[..., i] > 0.5                 # noqa: E731
     response = torch.where(
         flag(8), RESPONSE_STATIC,
@@ -146,6 +144,16 @@ def substep_solver_plain(cfg, state, param, ref, alt, con, pts, num,
     )
     params = dict(inv_m=p[..., 16], inv_i=p[..., 17:20],
                   mu_s=p[..., 4], mu_d=p[..., 5])
+    return body, params
+
+
+def substep_solver_plain(cfg, state, param, ref, alt, con, pts, num,
+                         je1=None, je2=None, jnt=None):
+    """The plain version: the same buffers through the tensor solver.
+    ``cfg`` is the step's PhysicsConfig."""
+    h = cfg.dt / cfg.substeps
+    body, params = unpack_state(state, param)
+    w = state.shape[2]
     c = con.permute(2, 1, 0)
     contacts = xpbd.Contacts(
         ref=ref.t(), alt=alt.t(), num=num.t(), normal=c[..., 0:3],
@@ -184,6 +192,15 @@ def substep_solver_plain(cfg, state, param, ref, alt, con, pts, num,
     ], dim=-1))
 
 
+def step_floats(cfg):
+    """The float arguments of a substep kernel: h, h * gravity (3),
+    h / 2, 2 / h, restitution and its threshold."""
+    h = cfg.dt / cfg.substeps
+    g = [float(x) for x in cfg.gravity]
+    return (h, h * g[0], h * g[1], h * g[2], 0.5 * h, 2.0 / h,
+            float(cfg.restitution), float(cfg.restitution_threshold))
+
+
 def _launch(cfg, state, param, ref, alt, con, pts, num, je1, je2, jnt):
     _, n, w = state.shape
     c = ref.shape[0]
@@ -210,8 +227,6 @@ def _launch(cfg, state, param, ref, alt, con, pts, num, je1, je2, jnt):
     # means something under the dynamic range
     ref_live = cfg.solver_ref_dyn_lanes if cfg.solver_dynamic_range else 0
     out = torch.empty((OUT_F, n, w), dtype=f32, device=state.device)
-    h = cfg.dt / cfg.substeps
-    g = [float(x) for x in cfg.gravity]
     ptr = lambda t: 0 if t is None else t.data_ptr()   # noqa: E731
     KERNEL.launch(
         state.data_ptr(), param.data_ptr(), ref.data_ptr(), alt.data_ptr(),
@@ -219,10 +234,7 @@ def _launch(cfg, state, param, ref, alt, con, pts, num, je1, je2, jnt):
         ptr(je1 if j else None), ptr(je2 if j else None),
         ptr(jnt if j else None), out.data_ptr(),
         n, c, j, w, cfg.substeps, cfg.jacobi_iters, d0, d1,
-        ref_live or c,
-        h, h * g[0], h * g[1], h * g[2], 0.5 * h, 2.0 / h,
-        float(cfg.restitution), float(cfg.restitution_threshold),
-        stream_ptr(),
+        ref_live or c, *step_floats(cfg), stream_ptr(),
     )
     return out
 

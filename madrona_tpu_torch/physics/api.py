@@ -1,24 +1,27 @@
 """PhysicsSystem: registration and the physics taskgraph node.
 
-Port of ``madrona_tpu/physics/api.py`` on the branches the Escape Room
-takes. Broadphase once per step on its kernel wrapper. Then one of:
+Port of ``madrona_tpu/physics/api.py`` on its Jacobi branches.
+Broadphase once per step on its kernel wrapper. Then one of:
 
+  * ``megakernel_fused=True``: the whole step (predicted-pose
+    integrate, every narrowphase lane, every substep) in the fused-step
+    kernel (``ops/fused_cuda``);
   * ``narrowphase="kernel_mega"`` (the JAX package's ``"pallas_mega"``):
     predicted poses from ``xpbd.integrate``, the contacts kernel
     (``ops/contacts_cuda``), and every substep in the substep-solver
     kernel (``ops/solver_cuda``) fed by the contacts kernel's buffers;
-  * ``narrowphase="xla"`` with ``megakernel=True``: contacts once per
-    step from the plain tensor narrowphase, packed for the
-    substep-solver kernel;
-  * ``narrowphase="xla"`` alone: the plain tensor narrowphase (once per
-    step under ``narrowphase_once``, else per substep) and every substep
-    as integrate -> Jacobi position solve -> joints -> set_velocities ->
+  * ``narrowphase="xla"``, ``"kernel_sublane"`` or ``"kernel"``: contacts
+    from the plain tensor narrowphase, or with the hull-hull lane on the
+    hull-hull record kernel (``ops/hh_narrowphase_cuda``; the JAX
+    package's ``"pallas_sublane"`` and ``"pallas"``), once per step under
+    ``narrowphase_once``, else per substep; then with ``megakernel=True``
+    every substep in the substep-solver kernel, else every substep as
+    integrate -> Jacobi position solve -> joints -> set_velocities ->
     Jacobi velocity solve in tensor ops.
 
-Each kernel wrapper runs its plain version on a CPU tensor. The fused
-step, TGS, the Gauss-Seidel oracle, the hull-hull-only narrowphase
-kernels and the collision-event export come with later slices; selecting
-them raises ``NotImplementedError``.
+Each kernel wrapper runs its plain version on a CPU tensor. TGS, the
+Gauss-Seidel oracle, the swept broadphase and the collision-event export
+are not ported; selecting them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from . import geo
 from . import joints as _joints
 from . import narrowphase as np_
 from . import xpbd
-from ..ops import contacts_cuda, solver_cuda
+from ..ops import contacts_cuda, fused_cuda, hh_narrowphase_cuda, solver_cuda
 from ..ops.broadphase_cuda import find_candidates_kernel
 from .bodies import ObjectManager
 from .xpbd import BodyState, Contacts, PhysicsConfig
@@ -146,16 +149,15 @@ def write_back(sm: StateManager, state: SimState, body: BodyState
 
 
 def _narrowphase_all(body: BodyState, om: ObjectManager,
-                     cands: bp.Candidates) -> Contacts:
+                     cands: bp.Candidates, skip_hh: bool = False,
+                     sat_dirs: bool = True) -> Contacts:
     """Contacts of the candidate buffers in the fixed layout
-    [hull-hull | hull-plane] from the plain tensor narrowphase."""
-    if cands.sp.shape[1]:
-        raise NotImplementedError(
-            "sphere narrowphase lanes come with a later slice; set "
-            "CandidateCaps.sphere_any=0"
-        )
+    [hull-hull | hull-plane | sphere] from the plain tensor narrowphase.
+    ``skip_hh`` leaves the hull-hull segment without contacts (a kernel
+    fills it)."""
     ref, alt, points, num, normal = np_.narrowphase_lanes(
-        body.pos, body.rot, body.scale, body.obj_id, om, cands.hh, cands.hp
+        body.pos, body.rot, body.scale, body.obj_id, om, cands.hh, cands.hp,
+        cands.sp, cands.sp_kind, sat_dirs=sat_dirs, skip_hh=skip_hh,
     )
     return Contacts(
         ref=ref, alt=alt, points=points, num=num, normal=normal,
@@ -164,10 +166,58 @@ def _narrowphase_all(body: BodyState, om: ObjectManager,
     )
 
 
+def narrowphase_hh_kernel(body: BodyState, om: ObjectManager,
+                          cands: bp.Candidates, sat_dirs: bool = True):
+    """The hull-hull lanes on the hull-hull record kernel: the same
+    (ref, alt, points, num, normal) as the hull-hull segment of
+    :func:`_narrowphase_all` (JAX: ``narrowphase_hh_pallas``)."""
+    poses, obj = contacts_cuda.pack_poses(body, body.obj_id)
+    rec = hh_narrowphase_cuda.hh_record(cands.hh.contiguous(), poses, obj,
+                                        om, sat_dirs)
+    return hh_narrowphase_cuda.lanes(rec)
+
+
+def _narrowphase_mixed_kernel(body: BodyState, om: ObjectManager,
+                              cands: bp.Candidates,
+                              sat_dirs: bool = True) -> Contacts:
+    """Contacts with the hull-hull lane on its kernel and the hull-plane
+    and sphere lanes in plain tensor ops."""
+    full = _narrowphase_all(body, om, cands, skip_hh=True, sat_dirs=sat_dirs)
+    p = cands.hh.shape[1]
+    hh = narrowphase_hh_kernel(body, om, cands, sat_dirs)
+    seg = lambda x, y: torch.cat([y, x[:, p:]], dim=1)   # noqa: E731
+    return dataclasses.replace(
+        full, ref=seg(full.ref, hh[0]), alt=seg(full.alt, hh[1]),
+        points=seg(full.points, hh[2]), num=seg(full.num, hh[3]),
+        normal=seg(full.normal, hh[4]),
+    )
+
+
+def megakernel_fused_step(body: BodyState, cands: bp.Candidates,
+                          om: ObjectManager, cfg: PhysicsConfig,
+                          jbuf: Optional[_joints.Joints] = None
+                          ) -> BodyState:
+    """The whole physics step in one call of the fused-step kernel: the
+    same as integrate -> narrowphase at the predicted poses -> every
+    substep of the substep solver over all rows."""
+    args = fused_cuda.pack_fused(body, om)
+    jargs = (solver_cuda.pack_joints(jbuf, body.pos.shape[1])
+             if jbuf is not None else ())
+    out = fused_cuda.fused_step(
+        cfg, *args, cands.hh.contiguous(), cands.hp.contiguous(),
+        cands.sp.contiguous(), cands.sp_kind.contiguous(), om, *jargs,
+    )
+    return solver_cuda.unpack_out(body, out)
+
+
+NARROWPHASES = ("xla", "kernel_mega", "kernel_sublane", "kernel")
+SAT_TIERS = ("edge_dirs", "edge_pairs")
+
+
 def _check_supported(sm: StateManager, cfg: PhysicsConfig,
                      om: ObjectManager, caps: bp.CandidateCaps):
     later = []
-    if cfg.narrowphase not in ("xla", "kernel_mega"):
+    if cfg.narrowphase not in NARROWPHASES:
         later.append(f"narrowphase={cfg.narrowphase!r}")
     if cfg.broadphase != "kernel":
         later.append(f"broadphase={cfg.broadphase!r}")
@@ -175,26 +225,33 @@ def _check_supported(sm: StateManager, cfg: PhysicsConfig,
         raise NotImplementedError(
             "not ported yet: " + ", ".join(later)
         )
-    if cfg.megakernel and not cfg.narrowphase_once:
-        raise ValueError(
-            "PhysicsConfig.megakernel requires narrowphase_once=True"
-        )
-    if cfg.narrowphase == "kernel_mega":
-        if not (cfg.narrowphase_once and cfg.megakernel):
+    if cfg.sat_tier not in SAT_TIERS:
+        raise ValueError(f"sat_tier must be one of {SAT_TIERS}, got "
+                         f"{cfg.sat_tier!r}")
+    if COLLISION_EVENTS in sm.singletons:
+        raise NotImplementedError("the CollisionEvents export is not ported")
+    if cfg.megakernel_fused:
+        if not cfg.narrowphase_once:
             raise ValueError(
-                "narrowphase='kernel_mega' requires narrowphase_once=True "
-                "and megakernel=True"
+                "PhysicsConfig.megakernel_fused requires solver='jacobi' "
+                "and narrowphase_once=True"
             )
-        if caps.sphere_any != 0:
+    else:
+        if cfg.megakernel and not cfg.narrowphase_once:
             raise ValueError(
-                "narrowphase='kernel_mega' covers hull-hull and hull-plane "
-                "lanes only; set CandidateCaps.sphere_any=0"
+                "PhysicsConfig.megakernel requires narrowphase_once=True"
             )
-        if COLLISION_EVENTS in sm.singletons:
-            raise NotImplementedError(
-                "the CollisionEvents export needs W-major Contacts, which "
-                "narrowphase='kernel_mega' never builds; it is not ported"
-            )
+        if cfg.narrowphase == "kernel_mega":
+            if not (cfg.narrowphase_once and cfg.megakernel):
+                raise ValueError(
+                    "narrowphase='kernel_mega' requires narrowphase_once="
+                    "True and megakernel=True"
+                )
+            if caps.sphere_any != 0:
+                raise ValueError(
+                    "narrowphase='kernel_mega' covers hull-hull and "
+                    "hull-plane lanes only; set CandidateCaps.sphere_any=0"
+                )
     if cfg.solver_ref_dyn_lanes:
         # an env-layout contract (every contact lane >= K has a static
         # ref row): validate the parts visible at setup
@@ -223,7 +280,16 @@ def make_physics_node(sm: StateManager, om: ObjectManager,
     caps = caps or bp.CandidateCaps()
     _check_supported(sm, cfg, om, caps)
     h = cfg.dt / cfg.substeps
+    sat_dirs = cfg.sat_tier == "edge_dirs"
     om_on = {}
+
+    def narrow(body, om_d, cands):
+        if cfg.narrowphase == "kernel_sublane":
+            return _narrowphase_mixed_kernel(body, om_d, cands, sat_dirs)
+        if cfg.narrowphase == "kernel":
+            # the lane-major TPU kernel has edge pairs only
+            return _narrowphase_mixed_kernel(body, om_d, cands, False)
+        return _narrowphase_all(body, om_d, cands, sat_dirs=sat_dirs)
 
     def megakernel_substeps(body, om_d, cargs, jbuf):
         """Every substep in one call of the substep-solver kernel, on
@@ -243,22 +309,26 @@ def make_physics_node(sm: StateManager, om: ObjectManager,
         cands = find_candidates_kernel(body, om_d, caps, cfg.dt)
         jbuf = joints_view(state) if JOINT_BUFFER in sm_.singletons else None
 
+        if cfg.megakernel_fused:
+            return write_back(
+                sm_, state, megakernel_fused_step(body, cands, om_d, cfg, jbuf)
+            )
+
         if cfg.narrowphase == "kernel_mega":
             # contacts kernel at the predicted poses, feeding the
             # substep-solver kernel its buffers as they stand
             pred = xpbd.integrate(body, om_d, h, cfg.gravity)
             poses, obj = contacts_cuda.pack_poses(pred, body.obj_id)
             cargs = contacts_cuda.contacts(cands.hh, cands.hp, poses, obj,
-                                           om_d)
+                                           om_d, sat_dirs)
             return write_back(
                 sm_, state, megakernel_substeps(body, om_d, cargs, jbuf)
             )
 
         frozen = None
         if cfg.narrowphase_once:
-            frozen = _narrowphase_all(
-                xpbd.integrate(body, om_d, h, cfg.gravity), om_d, cands
-            )
+            frozen = narrow(xpbd.integrate(body, om_d, h, cfg.gravity), om_d,
+                            cands)
         if cfg.megakernel:
             cargs = solver_cuda.pack_contacts(frozen)
             return write_back(
@@ -266,7 +336,7 @@ def make_physics_node(sm: StateManager, om: ObjectManager,
             )
         for _ in range(cfg.substeps):
             body = xpbd.integrate(body, om_d, h, cfg.gravity)
-            contacts = frozen if frozen is not None else _narrowphase_all(
+            contacts = frozen if frozen is not None else narrow(
                 body, om_d, cands
             )
             body, contacts = xpbd.solve_positions_jacobi(

@@ -1,27 +1,35 @@
 """Narrowphase: batched SAT contact generation for candidate pairs.
 
-Port of the hull-hull (``edge_dirs`` SAT tier) and hull-plane lanes of
-``madrona_tpu/physics/narrowphase.py`` (the reference's
-``src/physics/narrowphase.cpp``). Every function takes a leading batch
-axis B (one lane per candidate pair, all worlds flattened) and computes
-fixed-shape masked reductions over padded hull tables; argmax winners
-are read back with index gathers.
+Port of ``madrona_tpu/physics/narrowphase.py`` (the reference's
+``src/physics/narrowphase.cpp``): the hull-hull lane in both SAT tiers,
+the hull-plane lane and the three sphere lanes. Every function takes a
+leading batch axis B (one lane per candidate pair, all worlds
+flattened) and computes fixed-shape masked reductions over padded hull
+tables; argmax winners are read back with index gathers. These are the
+plain versions of the narrowphase device functions of the CUDA kernels
+(``csrc/sat.cuh``), which repeat their sums in the same order.
 
 Algorithm (unchanged from the JAX package):
   * face query: max over A's faces of (min over B's verts of signed
     distance), both ways;
-  * edge query over unique edge DIRECTION pairs, with a 1e-5 face
-    preference under near-ties (the direction family contains axes
-    equal to face normals);
+  * edge query, ``sat_tier="edge_dirs"``: over unique edge DIRECTION
+    pairs, with a 1e-5 face preference under near-ties (the direction
+    family contains axes equal to face normals);
+  * edge query, ``sat_tier="edge_pairs"``: over every edge pair that
+    passes the Gauss-map (Minkowski-face) test, with a strict face
+    compare;
   * face manifold: the incident polygon clipped by the ref face's side
     planes (its vertex set computed directly), points below the ref
     plane projected onto it, reduced to <= 4 points;
   * edge manifold: closest point on A's winning edge;
-  * hull-plane: the plane is always the reference.
+  * hull-plane and sphere-plane: the plane is always the reference;
+  * sphere-sphere and sphere-hull: the second body is the reference;
+    sphere-hull takes the closest of the hull's vertices, edges and face
+    interiors, or the face of least penetration when the center is
+    inside.
 
 Contact points lie on the REF body's surface; the normal points
-ref -> other. The Gauss-map ``edge_pairs`` tier and the sphere lanes
-come with the configurations that use them.
+ref -> other.
 """
 
 from __future__ import annotations
@@ -53,6 +61,9 @@ class HullW:
     face_polys: torch.Tensor      # [B, F, FV, 3]
     face_poly_mask: torch.Tensor  # [B, F, FV] bool
     center: torch.Tensor          # [B, 3]
+    # world normals of each edge's two faces (edge_pairs tier)
+    edge_n1: Optional[torch.Tensor] = None         # [B, E, 3]
+    edge_n2: Optional[torch.Tensor] = None         # [B, E, 3]
     # unique edge directions in world frame (scaled + rotated, not unit)
     edge_dirs: Optional[torch.Tensor] = None       # [B, D, 3]
     edge_dirs_mask: Optional[torch.Tensor] = None  # [B, D] bool
@@ -60,11 +71,13 @@ class HullW:
 
 
 def hull_row_to_world(row, dims, pos, rot, scale, need_edges: bool = True,
-                      dirs_row=None, n_dirs: int = 0) -> HullW:
+                      dirs_row=None, n_dirs: int = 0,
+                      edge_normals: bool = False) -> HullW:
     """Unpack packed hull rows [B, K] and transform them by
     (pos [B, 3], rot [B, 4], scale [B, 3]). Normals are re-derived to
     stay valid under non-uniform scale: n' ~ R (n / scale).
-    need_edges=False skips the edge transforms (hull-plane lanes)."""
+    need_edges=False skips the edge transforms (hull-plane lanes);
+    edge_normals=True adds the edges' face normals (edge_pairs tier)."""
     v, f, fv, e = dims
     b = row.shape[0]
     off = 0
@@ -81,8 +94,8 @@ def hull_row_to_world(row, dims, pos, rot, scale, need_edges: bool = True,
     faces_mask = cut(f, (f,)) > 0.5
     edge_p1l = cut(e * 3, (e, 3))
     edge_p2l = cut(e * 3, (e, 3))
-    cut(e * 3, (e, 3))              # adjacent-face normals: edge_pairs tier
-    cut(e * 3, (e, 3))
+    edge_n1l = cut(e * 3, (e, 3))   # adjacent-face normals
+    edge_n2l = cut(e * 3, (e, 3))
     edges_mask = cut(e, (e,)) > 0.5
     face_polys_l = cut(f * fv * 3, (f * fv, 3))
     face_poly_mask = cut(f * fv, (f, fv)) > 0.5
@@ -93,10 +106,13 @@ def hull_row_to_world(row, dims, pos, rot, scale, need_edges: bool = True,
     def xform_pt(p):
         return m3.quat_rotate(rot_b, p * scale_b) + pos[:, None, :]
 
+    def xform_n(n):
+        return m3.normalize(
+            m3.quat_rotate(rot_b, n / torch.clamp(scale_b, min=1e-12))
+        )
+
     verts = xform_pt(verts_l)
-    n_w = m3.normalize(
-        m3.quat_rotate(rot_b, planes_nl / torch.clamp(scale_b, min=1e-12))
-    )
+    n_w = xform_n(planes_nl)
     face_polys = xform_pt(face_polys_l).reshape(b, f, fv, 3)
     # plane d from the face's first polygon vertex (always live)
     d_w = m3.dot(n_w, face_polys[:, :, 0, :])
@@ -119,6 +135,8 @@ def hull_row_to_world(row, dims, pos, rot, scale, need_edges: bool = True,
             edge_dirs_mask=dirs_row[:, 3 * d: 4 * d] > 0.5,
             edge_dir_id=dirs_row[:, 4 * d: 4 * d + e],
         )
+    if need_edges and edge_normals:
+        dirs_kw.update(edge_n1=xform_n(edge_n1l), edge_n2=xform_n(edge_n2l))
     return HullW(
         verts=verts, verts_mask=vm, planes_n=n_w, planes_d=d_w,
         faces_mask=faces_mask,
@@ -320,6 +338,52 @@ def query_edge_directions_dirs(a: HullW, b: HullW):
     return sep_e, n_e, pa1, pa2, pb1, pb2
 
 
+def query_edge_directions(a: HullW, b: HullW):
+    """Edge query over every edge pair (queryEdgeDirections): a pair
+    counts where its Gauss-map arcs cross (isMinkowskiFace); its axis
+    cross(ea, eb) is oriented away from A's center and its separation is
+    the distance of B's edge from A's along it. A-edge major, first
+    best."""
+    bsz, e_a = a.edge_p1.shape[:2]
+    e_b = b.edge_p1.shape[1]
+
+    def ea(v):
+        return v[:, :, None, :]                           # [B, Ea, 1, 3]
+
+    def eb(v):
+        return v[:, None, :, :]                           # [B, 1, Eb, 3]
+
+    na1, na2 = ea(a.edge_n1), ea(a.edge_n2)
+    nb1, nb2 = eb(-b.edge_n1), eb(-b.edge_n2)
+    bxa = m3.cross(na2, na1)
+    dxc = m3.cross(nb2, nb1)
+    cba = m3.dot(nb1, bxa)
+    dba = m3.dot(nb2, bxa)
+    adc = m3.dot(na1, dxc)
+    bdc = m3.dot(na2, dxc)
+    mink = (cba * dba < 0.0) & (adc * bdc < 0.0) & (cba * bdc > 0.0)
+
+    pa1, pa2 = ea(a.edge_p1), ea(a.edge_p2)
+    pb1, pb2 = eb(b.edge_p1), eb(b.edge_p2)
+    cr = m3.cross(pa2 - pa1, pb2 - pb1)                   # [B, Ea, Eb, 3]
+    len2 = m3.dot(cr, cr)
+    ok = (mink & (len2 > 1e-12) & a.edges_mask[:, :, None]
+          & b.edges_mask[:, None, :])
+    n = cr * (1.0 / torch.sqrt(torch.clamp(len2, min=1e-30)))[..., None]
+    to_edge = pa1 - a.center[:, None, None, :]
+    flip = torch.where(m3.dot(n, to_edge) < 0.0, -1.0, 1.0)
+    n = n * flip[..., None]
+    sep = torch.where(ok, m3.dot(n, pb1 - pa1), NEG_BIG).reshape(
+        bsz, e_a * e_b)
+
+    best = torch.argmax(sep, dim=1)
+    i_star = best // e_b
+    j_star = best % e_b
+    return (_pick(sep, best), _pick(n.reshape(bsz, e_a * e_b, 3), best),
+            _pick(a.edge_p1, i_star), _pick(a.edge_p2, i_star),
+            _pick(b.edge_p1, j_star), _pick(b.edge_p2, j_star))
+
+
 def _select_hull(cond, x: HullW, y: HullW) -> HullW:
     """Per-lane choice between two hull batches (cond [B] bool)."""
     def sel(u, v):
@@ -334,18 +398,26 @@ def _select_hull(cond, x: HullW, y: HullW) -> HullW:
 
 
 def hull_hull_contact(a: HullW, b: HullW):
-    """Full SAT + manifold for a batch of hull pairs (``edge_dirs``).
+    """Full SAT + manifold for a batch of hull pairs, in the tier the
+    hulls carry: ``edge_dirs`` when they have edge directions, else
+    ``edge_pairs`` (their edge normals).
 
     Returns dict(valid, ref_is_a, points [B, 4, 3], depths [B, 4],
     num [B], normal [B, 3]). Face and edge manifolds are both computed
     and selected by mask."""
     sep_a, face_a = query_face_directions(a, b)
     sep_b, face_b = query_face_directions(b, a)
-    sep_e, n_e, pa1, pa2, pb1, pb2 = query_edge_directions_dirs(a, b)
-    # face preference under near-ties: the direction family contains
-    # axes numerically equal to face normals
-    face_bias = 1e-5
-    is_face = (sep_a >= sep_e - face_bias) | (sep_b >= sep_e - face_bias)
+    if a.edge_dirs is not None:
+        sep_e, n_e, pa1, pa2, pb1, pb2 = query_edge_directions_dirs(a, b)
+        # face preference under near-ties: the direction family contains
+        # axes numerically equal to face normals
+        face_bias = 1e-5
+        is_face = ((sep_a >= sep_e - face_bias)
+                   | (sep_b >= sep_e - face_bias))
+    else:
+        # the pair family is disjoint from the face normals: strict
+        sep_e, n_e, pa1, pa2, pb1, pb2 = query_edge_directions(a, b)
+        is_face = (sep_a > sep_e) | (sep_b > sep_e)
     separated = (sep_a > 0.0) | (sep_b > 0.0) | (sep_e > 0.0)
     a_is_ref = sep_a >= sep_b
 
@@ -415,38 +487,142 @@ def hull_plane_contact(h: HullW, plane_pos, plane_rot):
     )
 
 
-def narrowphase_lanes(pos, rot, scale, obj_id, om, hh_pairs, hp_pairs):
-    """Contacts of candidate pair buffers, in the fixed lane layout
-    [hull-hull | hull-plane]: one lane per candidate slot, all worlds
-    flattened into the batch axis of the functions above.
+def _one_point(valid, pt, depth, normal):
+    """A 1-point manifold dict: the point in slot 0, the rest zero."""
+    bsz = pt.shape[0]
+    pts = torch.zeros((bsz, 4, 3), dtype=pt.dtype, device=pt.device)
+    pts[:, 0] = pt
+    dep = torch.zeros((bsz, 4), dtype=pt.dtype, device=pt.device)
+    dep[:, 0] = depth
+    return dict(valid=valid, points=pts, depths=dep,
+                num=valid.to(torch.int32), normal=normal)
 
-    pos/rot/scale [W, N, 3|4|3], obj_id [W, N]; hh_pairs [W, PH, 2],
-    hp_pairs [W, PP, 2] (hull row, plane row). Returns (ref, alt [W, C]
-    int32, points [W, C, 4, 4], num [W, C] int32, normal [W, C, 3]) with
-    C = PH + PP. Sentinel rows read row N-1 and are masked out by
-    ``pair[0] < n``."""
-    w, n = pos.shape[:2]
-    dims = om.hull_dims
-    nb = torch.cat([pos, rot, scale], dim=-1)                  # [W, N, 10]
 
-    def lanes(pairs, side):
+def _plane_normal(plane_rot):
+    up = torch.zeros(plane_rot.shape[:-1] + (3,), dtype=plane_rot.dtype,
+                     device=plane_rot.device)
+    up[..., 2] = 1.0
+    return m3.quat_rotate(plane_rot, up)
+
+
+def sphere_sphere_contact(a_pos, a_r, b_pos, b_r):
+    """The point on B's surface toward A; B is the reference, the normal
+    points B -> A (the JAX package's convention for every pair type)."""
+    to_b = b_pos - a_pos
+    dist = torch.sqrt(torch.clamp(m3.dot(to_b, to_b), min=1e-30))
+    n_ab = to_b / dist[:, None]
+    up = torch.zeros_like(n_ab)
+    up[:, 2] = 1.0
+    n_ab = torch.where((dist > 1e-12)[:, None], n_ab, up)
+    penetration = a_r + b_r - dist
+    n = -n_ab
+    return _one_point(penetration >= 0.0, b_pos + b_r[:, None] * n,
+                      penetration, n)
+
+
+def sphere_plane_contact(s_pos, s_r, plane_pos, plane_rot):
+    """SpherePlane: the plane is the reference."""
+    n = _plane_normal(plane_rot)
+    d = m3.dot(n, plane_pos)
+    t = m3.dot(n, s_pos) - d
+    penetration = s_r - t
+    return _one_point(penetration >= 0.0, s_pos - t[:, None] * n,
+                      penetration, n)
+
+
+def sphere_hull_contact(s_pos, s_r, h: HullW):
+    """Sphere vs hull (the reference) by exact closest-point enumeration
+    over the padded tables: vertices, edge segments, face interiors;
+    a center inside the hull takes the face of least penetration."""
+    fd = m3.dot(h.planes_n, s_pos[:, None, :]) - h.planes_d   # [B, F]
+    fd_masked = torch.where(h.faces_mask, fd, NEG_BIG)
+    max_fd = fd_masked.amax(dim=1)
+    inside = max_fd <= 0.0
+
+    dv = h.verts - s_pos[:, None, :]
+    vdist2 = torch.where(h.verts_mask, m3.dot(dv, dv), BIG)
+    best_pt = _pick(h.verts, torch.argmin(vdist2, dim=1))
+    best_d2 = vdist2.amin(dim=1)
+
+    ev = h.edge_p2 - h.edge_p1
+    tt = m3.dot(s_pos[:, None, :] - h.edge_p1, ev) / torch.clamp(
+        m3.dot(ev, ev), min=1e-12)
+    tt = torch.clamp(tt, 0.0, 1.0)
+    ept = h.edge_p1 + tt[..., None] * ev
+    de = ept - s_pos[:, None, :]
+    ed2 = torch.where(h.edges_mask, m3.dot(de, de), BIG)
+    e_best = _pick(ept, torch.argmin(ed2, dim=1))
+    e_d2 = ed2.amin(dim=1)
+    best_pt = torch.where((e_d2 < best_d2)[:, None], e_best, best_pt)
+    best_d2 = torch.minimum(e_d2, best_d2)
+
+    # face interiors: the projection inside every side plane of the face
+    proj = s_pos[:, None, :] - fd[..., None] * h.planes_n     # [B, F, 3]
+    bsz, f, fv = h.face_poly_mask.shape
+    nxt = _poly_next(h.face_polys.reshape(bsz * f, fv, 3),
+                     h.face_poly_mask.reshape(bsz * f, fv)
+                     ).reshape(bsz, f, fv, 3)
+    side_n = m3.cross(nxt - h.face_polys, h.planes_n[:, :, None, :])
+    sd = m3.dot(side_n, proj[:, :, None, :] - h.face_polys)   # [B, F, FV]
+    f_inside = torch.all(torch.where(h.face_poly_mask, sd <= 1e-7, True),
+                         dim=-1)
+    f_ok = f_inside & h.faces_mask & (fd > 0.0)
+    f_d2 = torch.where(f_ok, fd * fd, BIG)
+    f_best = _pick(proj, torch.argmin(f_d2, dim=1))
+    f_d2min = f_d2.amin(dim=1)
+    best_pt = torch.where((f_d2min < best_d2)[:, None], f_best, best_pt)
+    best_d2 = torch.minimum(f_d2min, best_d2)
+
+    dist = torch.sqrt(torch.clamp(best_d2, min=1e-30))
+    to_sphere = (s_pos - best_pt) / dist[:, None]
+    deep_n = _pick(h.planes_n, torch.argmax(fd_masked, dim=1))
+    iv = inside[:, None]
+    depth = torch.where(inside, -max_fd + s_r, s_r - dist)
+    return _one_point(
+        depth >= 0.0,
+        torch.where(iv, s_pos - max_fd[:, None] * deep_n, best_pt), depth,
+        torch.where(iv, deep_n, to_sphere))
+
+
+def _sentinel_lanes(w, p, n, device):
+    """(ref, alt, points, num, normal) of p lanes without a contact."""
+    i32 = torch.int32
+    return (torch.full((w, p), n, dtype=i32, device=device),
+            torch.full((w, p), n, dtype=i32, device=device),
+            torch.zeros((w, p, 4, 4), device=device),
+            torch.zeros((w, p), dtype=i32, device=device),
+            torch.zeros((w, p, 3), device=device))
+
+
+class _Lanes:
+    """Per-lane body data of candidate buffers over one [W, N] body set."""
+
+    def __init__(self, pos, rot, scale, obj_id, om):
+        self.n = pos.shape[1]
+        self.w = pos.shape[0]
+        self.om = om
+        self.nb = torch.cat([pos, rot, scale], dim=-1)          # [W, N, 10]
+        self.obj_id = obj_id
+
+    def side(self, pairs, side):
         """Per-lane (pos, rot, scale, object id) of one pair side."""
         rows = pairs[..., side]
-        blk = gather_rows(nb, rows).reshape(-1, 10)
-        oid = gather_rows(obj_id, rows).reshape(-1).long()
+        blk = gather_rows(self.nb, rows).reshape(-1, 10)
+        oid = gather_rows(self.obj_id, rows).reshape(-1).long()
         return blk[:, 0:3], blk[:, 3:7], blk[:, 7:10], oid
 
-    def hull(lane, need_edges=True, dirs=False):
+    def hull(self, lane, need_edges=True, dirs=False, edge_normals=False):
         p, q, s, oid = lane
+        om = self.om
         return hull_row_to_world(
-            om.hull_pack[oid], dims, p, q, s, need_edges=need_edges,
+            om.hull_pack[oid], om.hull_dims, p, q, s, need_edges=need_edges,
             dirs_row=om.hull_dirs_pack[oid] if dirs else None,
-            n_dirs=om.n_edge_dirs if dirs else 0,
+            n_dirs=om.n_edge_dirs if dirs else 0, edge_normals=edge_normals,
         )
 
-    def emit(c, first, second, pairs):
+    def emit(self, c, first, second, pairs):
         """(ref, alt, points, num, normal) in [W, P, ...] layout."""
-        p = pairs.shape[1]
+        w, n, p = self.w, self.n, pairs.shape[1]
         ok = c["valid"] & (pairs[..., 0].reshape(-1) < n)
         sent = torch.full_like(first, n)
         pts = torch.cat([c["points"], c["depths"][..., None]], dim=-1)
@@ -458,18 +634,79 @@ def narrowphase_lanes(pos, rot, scale, obj_id, om, hh_pairs, hp_pairs):
             c["normal"].reshape(w, p, 3),
         )
 
-    a = hull(lanes(hh_pairs, 0), dirs=True)
-    b = hull(lanes(hh_pairs, 1), dirs=True)
+
+def hull_hull_lanes(pos, rot, scale, obj_id, om, hh_pairs,
+                    sat_dirs: bool = True):
+    """The hull-hull segment of :func:`narrowphase_lanes`: (ref, alt
+    [W, P] int32, points [W, P, 4, 4], num [W, P] int32, normal
+    [W, P, 3]); ``sat_dirs`` picks the ``edge_dirs`` SAT tier, else
+    ``edge_pairs``."""
+    lanes = _Lanes(pos, rot, scale, obj_id, om)
+    a = lanes.hull(lanes.side(hh_pairs, 0), dirs=sat_dirs,
+                   edge_normals=not sat_dirs)
+    b = lanes.hull(lanes.side(hh_pairs, 1), dirs=sat_dirs,
+                   edge_normals=not sat_dirs)
     c = hull_hull_contact(a, b)
     pa = hh_pairs[..., 0].reshape(-1).long()
     pb = hh_pairs[..., 1].reshape(-1).long()
-    hh = emit(c, torch.where(c["ref_is_a"], pa, pb),
-              torch.where(c["ref_is_a"], pb, pa), hh_pairs)
+    return lanes.emit(c, torch.where(c["ref_is_a"], pa, pb),
+                      torch.where(c["ref_is_a"], pb, pa), hh_pairs)
 
-    h = hull(lanes(hp_pairs, 0), need_edges=False)
-    pp, qp, _, _ = lanes(hp_pairs, 1)
+
+def narrowphase_lanes(pos, rot, scale, obj_id, om, hh_pairs, hp_pairs,
+                      sp_pairs=None, sp_kind=None, sat_dirs: bool = True,
+                      skip_hh: bool = False):
+    """Contacts of candidate pair buffers, in the fixed lane layout
+    [hull-hull | hull-plane | sphere]: one lane per candidate slot, all
+    worlds flattened into the batch axis of the functions above.
+
+    pos/rot/scale [W, N, 3|4|3], obj_id [W, N]; hh_pairs [W, PH, 2],
+    hp_pairs [W, PP, 2] (hull row, plane row), sp_pairs [W, PS, 2]
+    (sphere row, other row) with sp_kind [W, PS] the other's primitive
+    type (None: no sphere lanes). ``sat_dirs`` picks the SAT tier;
+    ``skip_hh`` leaves the hull-hull segment without contacts (the
+    caller fills it from a kernel). Returns (ref, alt [W, C] int32,
+    points [W, C, 4, 4], num [W, C] int32, normal [W, C, 3]) with
+    C = PH + PP + PS. Sentinel rows read row N-1 and are masked out by
+    ``pair[0] < n``."""
+    from . import geo
+
+    lanes = _Lanes(pos, rot, scale, obj_id, om)
+    w, n = lanes.w, lanes.n
+    if skip_hh:
+        hh = _sentinel_lanes(w, hh_pairs.shape[1], n, pos.device)
+    else:
+        hh = hull_hull_lanes(pos, rot, scale, obj_id, om, hh_pairs, sat_dirs)
+
+    h = lanes.hull(lanes.side(hp_pairs, 0), need_edges=False)
+    pp, qp, _, _ = lanes.side(hp_pairs, 1)
     c = hull_plane_contact(h, pp, qp)
     # the plane (second row) is the reference
-    hp = emit(c, hp_pairs[..., 1].reshape(-1).long(),
-              hp_pairs[..., 0].reshape(-1).long(), hp_pairs)
-    return tuple(torch.cat([x, y], dim=1) for x, y in zip(hh, hp))
+    hp = lanes.emit(c, hp_pairs[..., 1].reshape(-1).long(),
+                    hp_pairs[..., 0].reshape(-1).long(), hp_pairs)
+    segs = [hh, hp]
+
+    if sp_pairs is not None and sp_pairs.shape[1]:
+        radius = om.body_pack[:, 12]
+        ps, _, ss, os_ = lanes.side(sp_pairs, 0)
+        po, qo, so, oo = lanes.side(sp_pairs, 1)
+        r_s = radius[os_] * ss[:, 0]
+        c_ss = sphere_sphere_contact(ps, r_s, po, radius[oo] * so[:, 0])
+        c_sp = sphere_plane_contact(ps, r_s, po, qo)
+        c_sh = sphere_hull_contact(ps, r_s, lanes.hull((po, qo, so, oo)))
+        kind = sp_kind.reshape(-1)
+        is_plane, is_hull = kind == geo.TYPE_PLANE, kind == geo.TYPE_HULL
+
+        def pick(f):
+            a, b_, c_ = c_sp[f], c_sh[f], c_ss[f]
+            shape = (-1,) + (1,) * (a.dim() - 1)
+            return torch.where(is_plane.reshape(shape), a, torch.where(
+                is_hull.reshape(shape), b_, c_))
+
+        c = {f: pick(f) for f in ("valid", "points", "depths", "num",
+                                  "normal")}
+        # the second body (plane, hull or other sphere) is the reference
+        segs.append(lanes.emit(c, sp_pairs[..., 1].reshape(-1).long(),
+                               sp_pairs[..., 0].reshape(-1).long(),
+                               sp_pairs))
+    return tuple(torch.cat(parts, dim=1) for parts in zip(*segs))

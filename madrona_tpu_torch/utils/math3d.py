@@ -67,6 +67,14 @@ def quat_normalize(q):
     return q / torch.sqrt(torch.clamp(l2, min=1e-30))
 
 
+def quat_normalize_rcp(q):
+    """quat_normalize in the CUDA kernels' rounding: the squares summed
+    left to right, then one reciprocal square root multiplied in."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    l2 = w * w + x * x + y * y + z * z
+    return q * (1.0 / torch.sqrt(torch.clamp(l2, min=1e-30)))[..., None]
+
+
 def quat_to_mat3(q):
     """3x3 rotation matrix [..., 3, 3] (row-major)."""
     w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]

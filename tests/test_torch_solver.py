@@ -258,6 +258,10 @@ def test_env_config_names_the_kernel_tiers():
      ValueError),
     (dict(narrowphase="xla", narrowphase_once=False), None, ValueError),
     (dict(narrowphase="pallas_sublane"), None, NotImplementedError),
+    (dict(megakernel_fused=True, narrowphase_once=False), None, ValueError),
+    (dict(sat_tier="edge_triples"), None, ValueError),
+    (dict(narrowphase="kernel_sublane", narrowphase_once=False), None,
+     ValueError),
 ])
 def test_unsupported_configs_raise(change, caps, error):
     env = EscapeRoom()
@@ -266,6 +270,54 @@ def test_unsupported_configs_raise(change, caps, error):
     with pytest.raises(error):
         tapi.make_physics_node(sim.executor.sm, env.om, cfg,
                                caps or env.caps)
+
+
+@pytest.mark.parametrize("change", [
+    dict(narrowphase="kernel_sublane"),
+    dict(narrowphase="kernel", sat_tier="edge_pairs"),
+    dict(narrowphase="kernel_sublane", megakernel=False,
+         narrowphase_once=False),
+    dict(megakernel_fused=True, megakernel=False, narrowphase="xla"),
+    dict(megakernel_fused=True, sat_tier="edge_pairs"),
+    dict(sat_tier="edge_pairs"),
+], ids=["kernel_sublane", "kernel", "kernel_sublane_per_substep", "fused",
+        "fused_over_kernel_mega", "kernel_mega_edge_pairs"])
+def test_new_tiers_build(change):
+    """The hull-hull record tiers, the fused step and the edge_pairs SAT
+    tier build a physics node for the Escape Room."""
+    env = EscapeRoom()
+    sim = make_sim(env, num_worlds=2, seed=0, device="cpu")
+    cfg = dataclasses.replace(env.cfg, **change)
+    assert callable(tapi.make_physics_node(sim.executor.sm, env.om, cfg,
+                                           env.caps))
+
+
+def test_library_path_covers_included_headers(monkeypatch, tmp_path):
+    """A kernel library is keyed by its source and every csrc header it
+    includes: editing a header that a source includes, directly or
+    through another header, gives the source a new library; an edit
+    elsewhere does not."""
+    import shutil
+
+    from madrona_tpu_torch.ops import cuda_build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_build.CSRC, csrc)
+    monkeypatch.setattr(cuda_build, "CSRC", csrc)
+    assert cuda_build.includes("fused_step.cu") == [
+        "fused_step.cu", "sat.cuh", "solver.cuh", "vec.cuh"]
+    before = {s: cuda_build.library_path(s) for s in cuda_build.SOURCES}
+    with open(csrc / "vec.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {s: cuda_build.library_path(s) for s in cuda_build.SOURCES}
+    changed = {s for s in before if before[s] != after[s]}
+    assert changed == {"contacts.cu", "solver.cu", "hh_narrowphase.cu",
+                       "fused_step.cu"}
+    with open(csrc / "solver.cuh", "a") as f:
+        f.write("// edited\n")
+    again = {s: cuda_build.library_path(s) for s in cuda_build.SOURCES}
+    assert {s for s in after if after[s] != again[s]} == {
+        "solver.cu", "fused_step.cu"}
 
 
 def test_launch_path_refuses_cpu_tensors():

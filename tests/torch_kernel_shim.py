@@ -20,10 +20,12 @@ import re
 import shutil
 import subprocess
 
+from madrona_tpu_torch.ops import cuda_build
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CSRC = ROOT / "madrona_tpu_torch" / "csrc"
 SHIM = pathlib.Path(__file__).resolve().parent / "cuda_cpu_shim"
-SOURCES = ("broadphase", "contacts", "solver", "lidar", "raycast")
+SOURCES = tuple(s[:-len(".cu")] for s in cuda_build.SOURCES)
 
 _LAUNCH = re.compile(r"(\w+)<<<(.*?)>>>\(\s*(.*?)\);", re.S)
 
@@ -54,7 +56,8 @@ def build_cpu_kernels(out_dir) -> dict:
         lib = out_dir / f"lib{name}_cpu.so"
         procs.append((name, lib, subprocess.Popen(
             [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared",
-             "-fPIC", "-pthread", f"-I{SHIM}", "-o", str(lib), str(cpp)],
+             "-fPIC", "-pthread", f"-I{SHIM}", f"-I{CSRC}", "-o", str(lib),
+             str(cpp)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )))
     libs = {}

@@ -80,6 +80,88 @@ def torch_body(arrays):
     })
 
 
+def jax_body(arrays):
+    """numpy field dict -> the JAX package's BodyState."""
+    import jax.numpy as jnp
+    from madrona_tpu.physics import xpbd as j_xpbd
+
+    return j_xpbd.BodyState(**{k: jnp.asarray(v) for k, v in arrays.items()})
+
+
+def jax_cands(cands):
+    """The port's Candidates -> the JAX package's."""
+    import jax.numpy as jnp
+    from madrona_tpu.physics import broadphase as j_bp
+
+    return j_bp.Candidates(**{
+        f: jnp.asarray(getattr(cands, f).numpy())
+        for f in ("hh", "hh_num", "hp", "hp_num", "sp", "sp_num", "sp_kind",
+                  "overflow")
+    })
+
+
+def jax_state(state):
+    """The port's SimState -> the JAX package's (through numpy)."""
+    import jax.numpy as jnp
+    from madrona_tpu.core import archetype as j_arch
+    from madrona_tpu.core import entity_store as j_es
+    from madrona_tpu.core import state as j_state
+    from madrona_tpu_torch.interop import state_to_numpy
+
+    def j(x):
+        if isinstance(x, dict):
+            return {k: j(v) for k, v in x.items()}
+        return jnp.asarray(x)
+
+    tree = state_to_numpy(state)
+    return j_state.SimState(
+        tables={k: j_arch.Table(**j(t)) for k, t in tree["tables"].items()},
+        singletons=j(tree["singletons"]),
+        entities=j_es.EntityStore(**j(tree["entities"])),
+        rng=jnp.asarray(tree["rng"]), step=jnp.asarray(tree["step"]),
+    )
+
+
+def box_sphere_oms(with_sphere=True):
+    """(JAX ObjectManager, port ObjectManager) of the kernel goldens'
+    objects: a plane, two boxes and (with_sphere) a sphere."""
+    from madrona_tpu.physics import bodies as j_bodies
+    from madrona_tpu.physics import geo as j_geo
+    from madrona_tpu_torch.physics import bodies as t_bodies
+    from madrona_tpu_torch.physics import geo as t_geo
+
+    oms = []
+    for mod, geo in ((j_bodies, j_geo), (t_bodies, t_geo)):
+        reg = mod.ObjectRegistry()
+        reg.add_plane()
+        reg.add_hull(geo.box_hull((0.5, 0.5, 0.5)), mass=1.0)
+        reg.add_hull(geo.box_hull((0.4, 0.8, 0.3)), mass=2.5)
+        if with_sphere:
+            reg.add_sphere(0.45, mass=0.8)
+        oms.append(reg.build())
+    return tuple(oms)
+
+
+def assert_lanes_match(got, ref, tol_nrm=1e-4, tol_pts=1e-3):
+    """W-major (ref, alt, points, num, normal) of the port == the JAX
+    package's: rows and counts exactly, normals on live lanes within
+    tol_nrm, live manifold points within tol_pts without regard to order
+    (tests/golden_inputs.py compares the same way)."""
+    names = ("ref", "alt", "points", "num", "normal")
+    g = dict(zip(names, (np.asarray(x) for x in got)))
+    r = dict(zip(names, (np.asarray(x) for x in ref)))
+    for k in ("ref", "alt", "num"):
+        np.testing.assert_array_equal(g[k], r[k].astype(g[k].dtype),
+                                      err_msg=k)
+    live = r["num"] > 0
+    d = np.abs(g["normal"].astype(np.float64) - r["normal"])
+    assert np.where(live[..., None], d, 0.0).max() <= tol_nrm
+    dp = np.abs(sorted_live_points(g["points"], r["num"])
+                - sorted_live_points(r["points"], r["num"]))
+    assert dp.max() <= tol_pts
+    return live
+
+
 def assert_cands_equal(got, ref):
     """Port Candidates == JAX Candidates, every field exactly."""
     for f in ("hh", "hh_num", "hp", "hp_num", "sp", "sp_num", "sp_kind",
