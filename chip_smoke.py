@@ -68,7 +68,9 @@ Phases, each printing its own lines:
      path; and, with the fused library and the compiler taken away, a
      fused step raises;
  16. per-kernel times (CUDA events) beside their bounds, as one JSON line
-     of all eight kernels.
+     of all eight kernels; B1, B2, B3 and B8 also at Hide & Seek's
+     shape with their bounds there; B5's bound counts the live rows, and
+     its bound over every row is printed beside it.
 
 Any failure raises (non-zero exit). The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -231,6 +233,51 @@ def live_lane_bytes(ref, alt, con, pts, num) -> int:
                 + con.shape[0] * con.element_size()
                 + pts.shape[0] * pts.element_size())
     return nbytes(num) + int((num > 0).sum()) * per_lane
+
+
+def broadphase_cost(pack, cands):
+    """(bytes, operations) of one broadphase launch: the body pack in,
+    the candidate lists out; every body transformed, every pair tested."""
+    _, n, w = pack.shape
+    b = nbytes(pack, *[getattr(cands, f) for f in (
+        "hh", "hh_num", "hp", "hp_num", "sp", "sp_num", "sp_kind",
+        "overflow")])
+    return b, w * (BP_OPS_PER_BODY * n + BP_OPS_PER_PAIR * n * (n - 1) // 2)
+
+
+def contacts_cost(c_in, om, c_out, cnt):
+    """(bytes, operations) of one contacts launch on inputs c_in (hh, hp,
+    poses, obj) with outputs c_out and the scene's lane counts (from
+    check_contacts): the pose rows a live candidate names, the hull
+    tables, the tables out; the live lanes' arithmetic."""
+    b = (nbytes(c_in[0], c_in[1], om.hull_pack, om.hull_dirs_pack, *c_out)
+         + referenced_row_bytes(c_in[2], c_in[3], c_in[0], c_in[1]))
+    ops = (HH_OPS_CANDIDATE * cnt["hh_candidates"]
+           + HH_OPS_FACE * (cnt["hh_live"] - cnt["hh_1pt"])
+           + HH_OPS_EDGE * cnt["hh_1pt"]
+           + HP_OPS_CANDIDATE * cnt["hp_candidates"]
+           + HP_OPS_CONTACT * cnt["hp_live"])
+    return b, ops
+
+
+def solver_cost(cfg, state, param, c_out, jargs, cnt, n_joints, s_out):
+    """(bytes, operations) of one substep-solver launch: state, params,
+    joints and out once, the live contact lanes; per substep every row
+    of the dynamic range, each ok contact, live manifold point and live
+    joint."""
+    import torch
+
+    b = nbytes(state, param, *jargs, s_out) + live_lane_bytes(*c_out)
+    live_points = int(torch.where(c_out[2][7] > 0.5, c_out[4], 0).sum())
+    n, w = state.shape[1:]
+    d0, d1 = cfg.solver_dynamic_range or (0, n)
+    ops = cfg.substeps * (
+        SOLVER_OPS_BODY * (d1 - d0) * w
+        + (SOLVER_OPS_CONTACT_POS * cfg.jacobi_iters + SOLVER_OPS_CONTACT_VEL)
+        * cnt["ok"]
+        + SOLVER_OPS_POINT * live_points
+        + SOLVER_OPS_JOINT * n_joints)
+    return b, ops
 
 
 def random_scene(rs, om, n_obj_hi, n, crowded):
@@ -541,7 +588,7 @@ def compare_steps(what, name, got, ref, state, param, dyn_range):
     diffs = {f: float((got[lo:hi] - ref[lo:hi]).abs().max())
              for f, lo, hi, _ in fields}
     print(f"{what} kernel vs plain [{name}]: W={got.shape[2]} max_abs_diff "
-          + " ".join(f"{k}={v:.3g}" for k, v in diffs.items()))
+          + " ".join(f"{k}={v!r}" for k, v in diffs.items()))
     # how heavy the tail is: worlds where some field is off by more than a
     # tenth of its tolerance (a contact branch taken the other way)
     rel = torch.stack([
@@ -1039,9 +1086,9 @@ def check_hide_seek_physics(sim):
     fu_err, f_args, f_counts = check_fused("hide_seek + joint", f_cfg, body,
                                            om, got, jargs)
     return (0.0, co_err, so_err, fu_err), dict(
-        body=body, om=om, c_args=c_args, c_out=c_out, state=st, param=pr,
-        jargs=jargs, fused_cfg=f_cfg, fused_args=f_args,
-        fused_counts=f_counts)
+        body=body, om=om, c_args=c_args, c_out=c_out, counts=counts,
+        state=st, param=pr, jargs=jargs, n_joints=n_joints,
+        fused_cfg=f_cfg, fused_args=f_args, fused_counts=f_counts)
 
 
 def raycast_compare(name, planes, opts):
@@ -1455,11 +1502,7 @@ def main() -> int:
     body = papi.body_state(sim.executor.sm, sim.state)
     pack = broadphase_cuda.pack_bodies(body, om)
     cands = broadphase_cuda.broadphase(pack, env.caps, env.cfg.dt)
-    n = pack.shape[1]
-    bp_bytes = nbytes(pack, *[getattr(cands, f) for f in (
-        "hh", "hh_num", "hp", "hp_num", "sp", "sp_num", "sp_kind",
-        "overflow")])
-    bp_ops = W * (BP_OPS_PER_BODY * n + BP_OPS_PER_PAIR * n * (n - 1) // 2)
+    bp_bytes, bp_ops = broadphase_cost(pack, cands)
     bp_ms = timed(lambda: broadphase_cuda.broadphase(pack, env.caps,
                                                      env.cfg.dt))
     bp_route_ms = timed(lambda: broadphase_cuda.find_candidates_kernel(
@@ -1478,31 +1521,15 @@ def main() -> int:
     # contacts and solver on the probe's Escape Room scene (phases 4, 5)
     c_in, c_out, cnt = scene["args"], scene["contacts"], scene["counts"]
     om_s = scene["om"]
-    co_bytes = (nbytes(c_in[0], c_in[1], om_s.hull_pack,
-                       om_s.hull_dirs_pack, *c_out)
-                + referenced_row_bytes(c_in[2], c_in[3], c_in[0], c_in[1]))
-    co_ops = (HH_OPS_CANDIDATE * cnt["hh_candidates"]
-              + HH_OPS_FACE * (cnt["hh_live"] - cnt["hh_1pt"])
-              + HH_OPS_EDGE * cnt["hh_1pt"]
-              + HP_OPS_CANDIDATE * cnt["hp_candidates"]
-              + HP_OPS_CONTACT * cnt["hp_live"])
+    co_bytes, co_ops = contacts_cost(c_in, om_s, c_out, cnt)
     co_ms = timed(lambda: contacts_cuda.contacts(*c_in, om_s))
     co_plain_ms = timed(lambda: contacts_cuda.contacts_plain(*c_in, om_s),
                         PLAIN_PHYSICS_ITERS)
     cfg = env.cfg
     s_in = (scene["state"], scene["param"], *c_out, *scene["jargs"])
-    s_out = solver_cuda.substep_solver(cfg, *s_in)
-    so_bytes = (nbytes(scene["state"], scene["param"], *scene["jargs"], s_out)
-                + live_lane_bytes(*c_out))
-    live_points = int(torch.where(c_out[2][7] > 0.5, c_out[4], 0).sum())
-    d0, d1 = cfg.solver_dynamic_range
-    so_ops = cfg.substeps * (
-        SOLVER_OPS_BODY * (d1 - d0) * W
-        + (SOLVER_OPS_CONTACT_POS * cfg.jacobi_iters
-           + SOLVER_OPS_CONTACT_VEL)
-        * cnt["ok"]
-        + SOLVER_OPS_POINT * live_points
-        + SOLVER_OPS_JOINT * scene["n_joints"])
+    so_bytes, so_ops = solver_cost(
+        cfg, scene["state"], scene["param"], c_out, scene["jargs"], cnt,
+        scene["n_joints"], solver_cuda.substep_solver(cfg, *s_in))
     so_ms = timed(lambda: solver_cuda.substep_solver(cfg, *s_in))
     so_plain_ms = timed(
         lambda: solver_cuda.substep_solver_plain(cfg, *s_in),
@@ -1591,23 +1618,48 @@ def main() -> int:
     r_out = raycast_cuda.raytrace(*r_planes, **r_opts)
     ra_bytes = nbytes(*r_planes, r_out)
     wv, t_pad = r_planes[0].shape[:2]
-    pairs = wv * t_pad * r_out.shape[2]
-    ra_ops = (pairs * (RAY_OPS_PAIR
-                       + (RAY_OPS_PAIR_SHADOW if r_opts["shadows"] else 0))
-              + wv * r_out.shape[2]
-              * (RAY_OPS_RAY + (RAY_OPS_RAY_MATERIALS
-                                if r_opts["use_materials"] else 0)))
+    # what this run's data needs: the real rays, and for the primary test
+    # only the live rows (a row whose columns 0..2, A, are all zero has
+    # det 0 for every ray and cannot hit)
+    live_rows = int((r_planes[0][..., :3] != 0).any(dim=-1).sum())
+    per_ray = RAY_OPS_RAY + (RAY_OPS_RAY_MATERIALS if r_opts["use_materials"]
+                             else 0)
+    shadow = RAY_OPS_PAIR_SHADOW if r_opts["shadows"] else 0
+    ra_ops = n_rays * (live_rows * RAY_OPS_PAIR + wv * t_pad * shadow
+                       + wv * per_ray)
+    # every (view, padded ray, row): the yardstick of the kernel before it
+    # skipped dead rows, the same work before and after
+    r_pad = r_out.shape[2]
+    all_ops = r_pad * wv * (t_pad * (RAY_OPS_PAIR + shadow) + per_ray)
+    all_ms, all_by = bound(ra_bytes, all_ops)
+    print(f"raycast: {live_rows} of {wv * t_pad} rows live; bound over "
+          f"every row (the same-work yardstick of the kernel that tested "
+          f"them all) {all_ms:.5f} ms ({all_by}: {all_ops} ops) ({card})")
     del r_out
     ra_ms = timed(lambda: raycast_cuda.raytrace(*r_planes, **r_opts), 20, 2)
     ra_plain_ms = timed(
         lambda: raycast_cuda.raytrace_plain(*r_planes, **r_opts), 2, 1)
 
-    # B1-B3 at Hide & Seek's shapes (phase 11's arranged scene, 16,384
-    # worlds): times only, beside the rows of the Escape Room shapes
+    # B1-B3 and B8 at Hide & Seek's shapes (phase 11's arranged scene,
+    # 16,384 worlds), with bounds by the Escape Room rows' counts, beside
+    # the rows of the Escape Room shapes
     hb, hom, hcfg = hs_scene["body"], hs_scene["om"], HideSeek(pixels=False)
     h_in = (hs_scene["state"], hs_scene["param"], *hs_scene["c_out"],
             *hs_scene["jargs"])
     h_pack = broadphase_cuda.pack_bodies(hb, hom)
+    hs_cost = {
+        "broadphase": broadphase_cost(
+            h_pack, broadphase_cuda.broadphase(h_pack, hcfg.caps,
+                                               hcfg.cfg.dt)),
+        "contacts": contacts_cost(hs_scene["c_args"], hom, hs_scene["c_out"],
+                                  hs_scene["counts"]),
+        "substep_solver": solver_cost(
+            hcfg.cfg, hs_scene["state"], hs_scene["param"],
+            hs_scene["c_out"], hs_scene["jargs"], hs_scene["counts"],
+            hs_scene["n_joints"],
+            solver_cuda.substep_solver(hcfg.cfg, *h_in)),
+        "fused_step": hs_fu[2:],
+    }
     hs_ms = {
         "broadphase": (
             timed(lambda: broadphase_cuda.broadphase(h_pack, hcfg.caps,
@@ -1626,12 +1678,12 @@ def main() -> int:
         "fused_step": hs_fu[:2],
     }
     for (name, (k_ms, pl_ms)), err in zip(hs_ms.items(), hs_errs):
+        b, ops = hs_cost[name]
+        b_ms, b_by = bound(b, ops)
         print(f"{name} at the hide_seek shape (W={HS_STATE_W}, N=14, caps "
               f"7/9, J=4): {k_ms:.4f} ms/launch, plain {pl_ms:.4f} ms, "
+              f"bound {b_ms:.5f} ms ({b_by}: {b} B, {ops} ops), "
               f"max_abs_diff {err!r} ({card})")
-    hs_fu_b, hs_fu_by = bound(hs_fu[2], hs_fu[3])
-    print(f"fused_step at the hide_seek shape: bound {hs_fu_b:.5f} ms "
-          f"({hs_fu_by}: {hs_fu[2]} B, {hs_fu[3]} ops)")
 
     rows = []
     sub = path_launches["escape_room kernel_sublane"]

@@ -14,6 +14,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from . import archetype as _arch
+from .device import resolve_device
 from . import entity_store as _estore
 from .component import ArchetypeSpec, ComponentSpec
 from ..utils import rng as _rng
@@ -141,7 +142,10 @@ class StateManager:
 
     def init_state(self, num_worlds: int, seed: int = 0,
                    max_entities: Optional[int] = None,
-                   device="cpu") -> SimState:
+                   device=None) -> SimState:
+        """The zeroed state of ``num_worlds`` worlds on ``device``
+        (``None``: the card, as ``core/device.py`` resolves it)."""
+        device = resolve_device(device)
         self._frozen = True
         if max_entities is None:
             max_entities = max(1, sum(

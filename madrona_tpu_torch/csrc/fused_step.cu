@@ -32,7 +32,8 @@
 // objects' sphere radii (a few KB) are staged in shared memory per block.
 // In the narrowphase, lane k of a warp computes contact lanes k, k + 32,
 // ... of its world; in the substeps, lanes own bodies and constraints as in
-// csrc/solver.cu. No atomics: a step is reproducible bit for bit. Compiled
+// csrc/solver.cu, a whole warp per world (its narrowphase keeps the
+// warp's 32 lanes). No atomics: a step is reproducible bit for bit. Compiled
 // with --fmad=false, every sum in the plain versions' order.
 
 #include "sat.cuh"
@@ -40,6 +41,8 @@
 
 namespace {
 
+constexpr int kLanes = 32;       // lanes per world: a warp
+constexpr int kThreads = kWorldsPerBlock * kLanes;
 constexpr int kPoseF = 10;       // predicted pos xyz | rot wxyz | scale xyz
 
 struct Narrow {
@@ -181,7 +184,7 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(FusedArgs fa) {
             store_lanes(fa.lane_con, s.con, kConF, c, w, a.w, lane);
             store_lanes(fa.lane_pts, s.pts, kPtsF, c, w, a.w, lane);
         }
-        run_substeps(s, a, lane);
+        run_substeps<kLanes>(s, a, lane);
     }
     __syncthreads();
 

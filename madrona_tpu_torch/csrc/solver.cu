@@ -1,4 +1,5 @@
-// Every XPBD substep of one physics step in one launch, one warp per world.
+// Every XPBD substep of one physics step in one launch, half a warp per
+// world.
 //
 // Replaces the Pallas TPU kernel madrona_tpu/ops/solver_pallas.py
 // (_substep_kernel, built by make_substep_solver). Its plain PyTorch
@@ -17,31 +18,47 @@
 // What bounds it on the H100: by the count, bytes (it reads each input
 // once and writes 33 floats per body once, about 7.5 KB per world at the
 // Escape Room shape), with the arithmetic close behind (about 2,000 float
-// operations per live contact and substep). In practice it is latency:
-// long dependent chains with divisions and square roots, and one warp per
-// world.
+// operations per live contact and substep). In practice it is the issue
+// of instructions and their latency: long dependent chains with divisions
+// and square roots, a world's state in shared memory, few worlds resident
+// on an SM (their shared memory sets the count).
 //
 // What the design does about it: the body state of a world (33 fields per
 // body), its parameters, contacts and joints are loaded once into shared
 // memory and never go back to global memory between substeps. A block
-// holds 8 worlds, one warp each; the loads and the final store are done
-// by the whole block so that 8 neighbouring threads touch 8 neighbouring
-// worlds (one full 32-byte sector) of the worlds-minor buffers. Inside a
-// warp, lanes own bodies in the per-body phases and contacts (or joints)
-// in the per-constraint phases. A constraint lane writes its two bodies'
-// deltas to shared memory; then each body lane sums the deltas of the
-// constraints that name it, ref side first, then alt side, each in lane
-// order. No atomics: the sum order is fixed, so a step is reproducible
-// bit for bit. Rows outside the dynamic range are static by contract:
-// they are loaded, read by the contacts that touch them and never
-// written. A contact that is not ok, or that names the sentinel row,
-// does nothing and never becomes an address.
+// holds 8 worlds on 128 threads, 16 lanes (half a warp) each, so one warp
+// instruction serves two worlds: at the default shapes (8 or 9 dynamic
+// rows, 16 contact lanes, 2 or 4 joint slots) every per-body and
+// per-constraint phase is one pass of the 16 lanes; a warp per world would
+// leave half of its lanes or more idle. 8 worlds a block (61 KB of shared
+// memory at the Escape Room shape, 51 KB at Hide & Seek's) let 3 or 4
+// blocks share an SM; 16 worlds a block would fit 1 or 2. The loads and
+// the final store are done by the whole block so that 8 neighbouring
+// threads touch 8 neighbouring worlds (one full 32-byte sector) of the
+// worlds-minor buffers. A world's lanes own bodies in the per-body phases
+// and contacts (or joints) in the per-constraint phases. A constraint
+// lane writes its two bodies' deltas to shared memory; then each body
+// lane sums the deltas of the constraints that name it, ref side first,
+// then alt side, each in lane order, walking the list of them that it
+// built once for the step (csrc/solver.cuh::build_list). No atomics: the
+// sum order is fixed, so a step is reproducible bit for bit, and equal to
+// a scan over every lane. Rows outside the dynamic range are static by
+// contract: they are loaded, read by the contacts that touch them and
+// never written. A contact that is not ok, or that names the sentinel
+// row, does nothing and never becomes an address.
 
 #include "solver.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(kThreads) solver_kernel(Args a) {
+constexpr int kLanes = 16;                        // lanes per world
+constexpr int kThreads = kWorldsPerBlock * kLanes;
+// blocks an SM can hold by their shared memory at Hide & Seek's shape;
+// the register count must not lower it (at most 128 a thread)
+constexpr int kMinBlocks = 4;
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    solver_kernel(Args a) {
     extern __shared__ float smem[];
     const int n = a.n, c = a.c, j = a.j;
     const Layout L = world_layout(n, c, j);
@@ -63,9 +80,9 @@ __global__ void __launch_bounds__(kThreads) solver_kernel(Args a) {
     }
     __syncthreads();
 
-    const int lw = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int lw = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
     World s = world_at(L, fbase + lw * L.fpw, ibase + lw * L.ipw, n, c, j);
-    if (w0 + lw < a.w) run_substeps(s, a, lane);
+    if (w0 + lw < a.w) run_substeps<kLanes>(s, a, lane);
     __syncthreads();
 
     for (int i = threadIdx.x; i < kOutF * n * kWorldsPerBlock; i += kThreads) {
@@ -91,7 +108,7 @@ extern "C" int solver_launch(
         return (int)cudaErrorInvalidValue;
     const size_t bytes =
         (floats_per_world(n, c, j) * sizeof(float) +
-         ints_per_world(c, j) * sizeof(int)) * kWorldsPerBlock;
+         ints_per_world(n, c, j) * sizeof(int)) * kWorldsPerBlock;
     if (bytes > kMaxShared) return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
         solver_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

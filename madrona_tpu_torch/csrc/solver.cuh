@@ -1,6 +1,7 @@
 // XPBD substep device functions shared by the substep-solver and
-// fused-step kernels (csrc/solver.cu, fused_step.cu): one warp per world,
-// the world's bodies, parameters, contacts and joints in shared memory.
+// fused-step kernels (csrc/solver.cu, fused_step.cu): kLanes lanes of a
+// warp per world (16 in the substep solver, 32 in the fused step), the
+// world's bodies, parameters, contacts and joints in shared memory.
 //
 // Per world and per substep, on contacts frozen for the step: integrate
 // (gravity, external force and torque, gyroscopic term, quaternion
@@ -11,15 +12,18 @@
 // the velocity solve (restitution on the average contact, dynamic friction
 // per manifold point), averaged per body.
 //
-// Inside a warp, lanes own bodies in the per-body phases and contacts (or
+// A world's lanes own bodies in the per-body phases and contacts (or
 // joints) in the per-constraint phases. A constraint lane writes its two
 // bodies' deltas to shared memory; then each body lane sums the deltas of
 // the constraints that name it, ref side first, then alt side, each in
-// lane order. No atomics: the sum order is fixed, so a step is
-// reproducible bit for bit. Rows outside the dynamic range are static by
-// contract: they are loaded, read by the contacts that touch them and
-// never written. A contact that is not ok, or that names the sentinel row,
-// does nothing and never becomes an address. Its plain PyTorch version is
+// lane order. Contacts and joints are frozen for the step, so each body
+// lane lists those constraints once a step (build_list) and every sum
+// walks its list instead of scanning every lane. No atomics: the sum
+// order is fixed, so a step is reproducible bit for bit. Rows outside the
+// dynamic range are static by contract: they are loaded, read by the
+// contacts that touch them and never written. A contact that is not ok,
+// or that names the sentinel row, does nothing and never becomes an
+// address. Its plain PyTorch version is
 // madrona_tpu_torch/ops/solver_cuda.py::substep_solver_plain.
 
 #pragma once
@@ -29,7 +33,6 @@
 namespace {
 
 constexpr int kWorldsPerBlock = 8;
-constexpr int kThreads = kWorldsPerBlock * 32;
 constexpr int kStateF = 13;
 constexpr int kOutF = 33;
 constexpr int kParamF = 20;
@@ -65,6 +68,10 @@ struct World {
     int* je1;      // [j]
     int* je2;      // [j]
     int* jlive;    // [j]
+    int* cofs;     // [n + 1] each body's contact entries: cent[cofs[b]..]
+    int* cent;     // [2c] contact lists (build_list)
+    int* jofs;     // [n + 1] the same for the joints
+    int* jent;     // [2j]
     int n, c, j;
     int stride;    // row length of delta: max(c, j)
 
@@ -336,30 +343,54 @@ __device__ void joint_slot(World& s, int k) {
     s.put_delta(k, 1, ux2 - x2, uq2 - q2);
 }
 
-// Mean over the constraints that name body b of their `width` delta
-// rows: side 0 (lanes below lanes0) first, then side 1, in lane order.
-__device__ void mean_delta(const World& s, int b, const int* rows0,
-                           const int* rows1, const int* live, int lanes0,
-                           int lanes, int width, float* mean) {
-    const int stride = s.stride;
-    float sum0[7], sum1[7];
-    for (int i = 0; i < width; ++i) sum0[i] = sum1[i] = 0.0f;
-    float count = 0.0f;
+// The list of the constraints that name body b (in [d0, d1)): entries
+// ent[ofs[b] .. ofs[b + 1]), side 0 (lanes below lanes0, entry k: delta
+// rows 0..6) first, then side 1 (entry 7 * stride + k: rows 7..13), each
+// in lane order. Lists of lower bodies come first; body b's lane writes
+// ofs[b], and the last body's lane ofs[d1] too.
+__device__ void build_list(const World& s, int b, int d0, int d1,
+                           const int* rows0, const int* rows1,
+                           const int* live, int lanes0, int lanes, int* ofs,
+                           int* ent) {
+    int start = 0, own = 0;
     for (int k = 0; k < lanes0; ++k) {
-        if (live[k] && rows0[k] == b) {
-            for (int i = 0; i < width; ++i)
-                sum0[i] += s.delta[i * stride + k];
-            count += 1.0f;
-        }
+        if (!live[k]) continue;
+        const int r = rows0[k];
+        start += r >= d0 && r < b;
+        own += r == b;
     }
     for (int k = 0; k < lanes; ++k) {
-        if (live[k] && rows1[k] == b) {
-            for (int i = 0; i < width; ++i)
-                sum1[i] += s.delta[(7 + i) * stride + k];
-            count += 1.0f;
-        }
+        if (!live[k]) continue;
+        const int r = rows1[k];
+        start += r >= d0 && r < b;
+        own += r == b;
     }
-    count = fmaxf(count, 1.0f);
+    ofs[b] = start;
+    if (b == d1 - 1) ofs[d1] = start + own;
+    int e = start;
+    for (int k = 0; k < lanes0; ++k)
+        if (live[k] && rows0[k] == b) ent[e++] = k;
+    for (int k = 0; k < lanes; ++k)
+        if (live[k] && rows1[k] == b) ent[e++] = 7 * s.stride + k;
+}
+
+// Mean over the constraints of body b's list of their `width` delta rows:
+// the side-0 sum and the side-1 sum, each in lane order, then their sum
+// over the count, as a scan over every lane would add them.
+__device__ void mean_delta(const World& s, int b, const int* ofs,
+                           const int* ent, int width, float* mean) {
+    const int stride = s.stride, side1 = 7 * stride;
+    float sum0[7], sum1[7];
+    for (int i = 0; i < width; ++i) sum0[i] = sum1[i] = 0.0f;
+    const int lo = ofs[b], hi = ofs[b + 1];
+    int e = lo;
+    for (; e < hi && ent[e] < side1; ++e)
+        for (int i = 0; i < width; ++i)
+            sum0[i] += s.delta[i * stride + ent[e]];
+    for (; e < hi; ++e)
+        for (int i = 0; i < width; ++i)
+            sum1[i] += s.delta[i * stride + ent[e]];
+    const float count = fmaxf((float)(hi - lo), 1.0f);
     for (int i = 0; i < width; ++i) mean[i] = (sum0[i] + sum1[i]) / count;
 }
 
@@ -481,7 +512,7 @@ __device__ void velocity_contact(World& s, const Args& a, int k) {
 template <typename T>
 __device__ void load_table(T* shared, size_t world_stride, const T* global,
                            int rows, int w0, int w) {
-    for (int i = threadIdx.x; i < rows * kWorldsPerBlock; i += kThreads) {
+    for (int i = threadIdx.x; i < rows * kWorldsPerBlock; i += blockDim.x) {
         const int lw = i % kWorldsPerBlock, row = i / kWorldsPerBlock;
         if (w0 + lw < w)
             shared[lw * world_stride + row] =
@@ -494,8 +525,8 @@ __host__ __device__ inline size_t floats_per_world(int n, int c, int j) {
     return (size_t)(kOutF + kParamF) * n + (size_t)(kConF + kPtsF + 1) * c +
            (size_t)kJntF * j + (size_t)kDeltaF * cj;
 }
-__host__ __device__ inline size_t ints_per_world(int c, int j) {
-    return (size_t)4 * c + (size_t)3 * j;
+__host__ __device__ inline size_t ints_per_world(int n, int c, int j) {
+    return (size_t)6 * c + (size_t)5 * j + 2 * ((size_t)n + 1);
 }
 
 // Offsets of the tables inside one world's float and int slices of shared
@@ -504,13 +535,14 @@ struct Layout {
     size_t fpw, ipw;
     size_t o_st, o_pr, o_con, o_pts, o_jnt, o_delta, o_lam;
     size_t o_ref, o_alt, o_num, o_live, o_je1, o_je2, o_jlive;
+    size_t o_cofs, o_cent, o_jofs, o_jent;
 };
 
 __host__ __device__ inline Layout world_layout(int n, int c, int j) {
     const int cj = c > j ? c : j;
     Layout L;
     L.fpw = floats_per_world(n, c, j);
-    L.ipw = ints_per_world(c, j);
+    L.ipw = ints_per_world(n, c, j);
     L.o_st = 0;
     L.o_pr = L.o_st + (size_t)kOutF * n;
     L.o_con = L.o_pr + (size_t)kParamF * n;
@@ -525,6 +557,10 @@ __host__ __device__ inline Layout world_layout(int n, int c, int j) {
     L.o_je1 = 4 * (size_t)c;
     L.o_je2 = L.o_je1 + j;
     L.o_jlive = L.o_je2 + j;
+    L.o_cofs = L.o_jlive + j;
+    L.o_cent = L.o_cofs + (size_t)n + 1;
+    L.o_jofs = L.o_cent + 2 * (size_t)c;
+    L.o_jent = L.o_jofs + (size_t)n + 1;
     return L;
 }
 
@@ -538,18 +574,31 @@ __device__ World world_at(const Layout& L, float* f, int* ip, int n, int c,
     s.ref = ip + L.o_ref; s.alt = ip + L.o_alt; s.num = ip + L.o_num;
     s.live = ip + L.o_live; s.je1 = ip + L.o_je1; s.je2 = ip + L.o_je2;
     s.jlive = ip + L.o_jlive;
+    s.cofs = ip + L.o_cofs; s.cent = ip + L.o_cent;
+    s.jofs = ip + L.o_jofs; s.jent = ip + L.o_jent;
     s.n = n; s.c = c; s.j = j; s.stride = c > j ? c : j;
     return s;
 }
 
-// Every substep of world s on its frozen contacts, by the 32 lanes of one
-// warp. Rows outside [a.d0, a.d1) are static by contract.
+// The lanes of the caller's warp that serve its world: kLanes of the 32.
+template <int kLanes>
+__device__ __forceinline__ unsigned world_mask() {
+    static_assert(kLanes == 16 || kLanes == 32, "16 or 32 lanes a world");
+    if constexpr (kLanes == 32) return 0xffffffffu;
+    else
+        return ((1u << kLanes) - 1u) << ((threadIdx.x % 32) / kLanes * kLanes);
+}
+
+// Every substep of world s on its frozen contacts, by its kLanes lanes
+// (lane in [0, kLanes)). Rows outside [a.d0, a.d1) are static by contract.
+template <int kLanes>
 __device__ void run_substeps(World& s, const Args& a, int lane) {
+    const unsigned mask = world_mask<kLanes>();
     const int n = s.n, c = s.c, j = s.j;
     // the solver scratch of every row as integrate leaves a row that
     // does not move: previous and presolve pose = pose, presolve
     // velocities 0 (rows outside the dynamic range keep these)
-    for (int b = lane; b < n; b += 32) {
+    for (int b = lane; b < n; b += kLanes) {
         const V3 x = s.s3(F_X, b);
         const Q4 q = s.s4(F_Q, b);
         s.put3(F_PREV_X, b, x); s.put4(F_PREV_Q, b, q);
@@ -557,61 +606,69 @@ __device__ void run_substeps(World& s, const Args& a, int lane) {
         s.put3(F_PSV, b, V3{0.0f, 0.0f, 0.0f});
         s.put3(F_PSW, b, V3{0.0f, 0.0f, 0.0f});
     }
-    for (int k = lane; k < c; k += 32) {
+    for (int k = lane; k < c; k += kLanes) {
         const int r = s.ref[k], al = s.alt[k];
         s.live[k] = s.con[7 * c + k] > 0.5f && r >= 0 && r < n &&
                     al >= 0 && al < n;
     }
-    for (int k = lane; k < j; k += 32) {
+    for (int k = lane; k < j; k += kLanes) {
         const int e1 = s.je1[k], e2 = s.je2[k];
         s.jlive[k] = s.jnt[21 * j + k] > 0.5f && e1 >= 0 && e1 < n &&
                      e2 >= 0 && e2 < n;
     }
-    __syncwarp();
+    __syncwarp(mask);
+    // each body's contacts and joints, once a step
+    for (int b = a.d0 + lane; b < a.d1; b += kLanes) {
+        build_list(s, b, a.d0, a.d1, s.ref, s.alt, s.live, a.ref_live, c,
+                   s.cofs, s.cent);
+        if (j > 0)
+            build_list(s, b, a.d0, a.d1, s.je1, s.je2, s.jlive, j, j, s.jofs,
+                       s.jent);
+    }
+    __syncwarp(mask);
 
     float mean[7];
     for (int step = 0; step < a.substeps; ++step) {
-        for (int b = a.d0 + lane; b < a.d1; b += 32)
+        for (int b = a.d0 + lane; b < a.d1; b += kLanes)
             integrate_body(s, a, b);
-        for (int k = lane; k < c; k += 32) s.lam[k] = 0.0f;
-        __syncwarp();
+        for (int k = lane; k < c; k += kLanes) s.lam[k] = 0.0f;
+        __syncwarp(mask);
 
         for (int it = 0; it < a.iters; ++it) {
-            for (int k = lane; k < c; k += 32)
+            for (int k = lane; k < c; k += kLanes)
                 if (s.live[k]) position_contact(s, k);
-            __syncwarp();
-            for (int b = a.d0 + lane; b < a.d1; b += 32) {
-                mean_delta(s, b, s.ref, s.alt, s.live, a.ref_live, c, 7,
-                           mean);
+            __syncwarp(mask);
+            for (int b = a.d0 + lane; b < a.d1; b += kLanes) {
+                mean_delta(s, b, s.cofs, s.cent, 7, mean);
                 apply_pose_mean(s, b, mean);
             }
-            __syncwarp();
+            __syncwarp(mask);
         }
 
         if (j > 0) {
-            for (int k = lane; k < j; k += 32)
+            for (int k = lane; k < j; k += kLanes)
                 if (s.jlive[k]) joint_slot(s, k);
-            __syncwarp();
-            for (int b = a.d0 + lane; b < a.d1; b += 32) {
-                mean_delta(s, b, s.je1, s.je2, s.jlive, j, j, 7, mean);
+            __syncwarp(mask);
+            for (int b = a.d0 + lane; b < a.d1; b += kLanes) {
+                mean_delta(s, b, s.jofs, s.jent, 7, mean);
                 apply_pose_mean(s, b, mean);
             }
-            __syncwarp();
+            __syncwarp(mask);
         }
 
-        for (int b = a.d0 + lane; b < a.d1; b += 32)
+        for (int b = a.d0 + lane; b < a.d1; b += kLanes)
             set_velocity(s, a, b);
-        __syncwarp();
+        __syncwarp(mask);
 
-        for (int k = lane; k < c; k += 32)
+        for (int k = lane; k < c; k += kLanes)
             if (s.live[k]) velocity_contact(s, a, k);
-        __syncwarp();
-        for (int b = a.d0 + lane; b < a.d1; b += 32) {
-            mean_delta(s, b, s.ref, s.alt, s.live, a.ref_live, c, 6, mean);
+        __syncwarp(mask);
+        for (int b = a.d0 + lane; b < a.d1; b += kLanes) {
+            mean_delta(s, b, s.cofs, s.cent, 6, mean);
             s.put3(F_V, b, s.s3(F_V, b) + V3{mean[0], mean[1], mean[2]});
             s.put3(F_W, b, s.s3(F_W, b) + V3{mean[3], mean[4], mean[5]});
         }
-        __syncwarp();
+        __syncwarp(mask);
     }
 }
 

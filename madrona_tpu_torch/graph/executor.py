@@ -23,7 +23,7 @@ class Executor:
         seed: int = 0,
         init_fn: Optional[Callable[[StateManager, SimState], SimState]] = None,
         max_entities: Optional[int] = None,
-        device="cpu",
+        device=None,
     ):
         self.sm = sm
         self.num_worlds = num_worlds

@@ -16,21 +16,11 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from ..core.device import resolve_device
 from ..core.registry import ECSRegistry
 from ..core.state import SimState, StateManager
 from ..graph.builder import TaskGraphBuilder, TaskGraphManager
 from ..graph.executor import Executor
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` -> ``cuda``; a CUDA device without CUDA raises."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "madrona_tpu_torch runs on the GPU by default and CUDA is not "
-            "available; pass device='cpu' to run on the CPU"
-        )
-    return dev
 
 
 class EnvBase:

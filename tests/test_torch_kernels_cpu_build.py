@@ -115,22 +115,39 @@ RAYCAST_OPTIONS = {
 }
 
 
-@pytest.mark.parametrize("name", list(RAYCAST_OPTIONS))
-def test_raycast_source_equals_plain(cpu_kernels, name):
+@pytest.mark.parametrize(
+    "name,wide", [(n, w) for w in (False, True) for n in RAYCAST_OPTIONS],
+    ids=[n + ("-two_tiles" if w else "") for w in (False, True)
+         for n in RAYCAST_OPTIONS])
+def test_raycast_source_equals_plain(cpu_kernels, name, wide):
+    """200 rays: one ragged tile of 512 (128 threads x 4 rays). Wide:
+    1100 rays (two full tiles and a ragged one; the 256 pixel directions
+    repeated) over 300 triangle rows (two shared-memory chunks)."""
     shadows, use_lights, use_materials = RAYCAST_OPTIONS[name]
+    seed = 10 + list(RAYCAST_OPTIONS).index(name)
+    wv, rays = (2, 1100) if wide else (4, 200)
     planes = [torch.from_numpy(x) for x in raycast_planes(
-        10 + list(RAYCAST_OPTIONS).index(name), 8)]
-    # a ragged last tile: 200 rays in blocks of 128
-    planes[2] = planes[2][:, :200].contiguous()
+        seed, 8, wv=wv, t_pad=300 if wide else 40)]
+    planes[2] = planes[2].repeat(1, 5)[:, :rays].contiguous()
     opts = dict(t_max=50.0, shadows=shadows, use_lights=use_lights,
                 use_materials=use_materials, ambient=0.35,
                 shadow_ambient=0.3, sky=(0.1, 0.2, 0.4), tex_size=8,
                 t_min=1e-3, eps_det=1e-9)
     got = raycast_cuda._launch(*planes, **opts)
     ref = raycast_cuda.raytrace_plain(*planes, **opts)
-    assert got.shape == ref.shape == (4, raycast_cuda.PO, 200)
+    assert got.shape == ref.shape == (wv, raycast_cuda.PO, rays)
     assert torch.equal(got, ref)
-    assert 0.3 < float((ref[:, raycast_cuda.O_T] < 50.0).float().mean()) < 1
+    hit = float((ref[:, raycast_cuda.O_T] < 50.0).float().mean())
+    if wide:
+        # 296 live rows cover every ray; the second chunk holds winners
+        assert hit == 1.0
+        first = planes[0].clone()
+        first[:, 256:] = 0.0
+        cut = raycast_cuda.raytrace_plain(first, *planes[1:], **opts)
+        assert not torch.equal(cut[:, raycast_cuda.O_T],
+                               ref[:, raycast_cuda.O_T])
+    else:
+        assert 0.3 < hit < 1
     if shadows:
         assert float(ref[:, raycast_cuda.O_OCC].mean()) > 0.02
 
@@ -213,34 +230,56 @@ def _escape_room_solver_case():
 
 
 @pytest.fixture(scope="module")
-def solver_cases(crowded):
+def solver_cases(crowded, hide_seek):
+    """{scene: (step config, the solver's inputs)}."""
     spec, args = _escape_room_solver_case()
     body, om, _, cargs = crowded
     spec_cr = dataclasses.replace(spec, solver_dynamic_range=None,
                                   solver_ref_dyn_lanes=0, jacobi_iters=2)
     args_cr = (*solver_cuda.pack_state(body, om), *cargs, None, None, None)
-    out = {}
-    for name, sp, a in (("escape_room", spec, args),
-                        ("crowded", spec_cr, args_cr)):
-        out[name] = (sp, a[0], solver_cuda._launch(sp, *a),
-                     solver_cuda.substep_solver_plain(sp, *a))
-    return out
+    return {"escape_room": (spec, args), "crowded": (spec_cr, args_cr),
+            "hide_seek": (hide_seek["env"].cfg, hide_seek["sargs"])}
 
 
-@pytest.mark.parametrize("scene", ["escape_room", "crowded"])
-def test_solver_source_matches_plain(solver_cases, scene):
-    spec, state, got, ref = solver_cases[scene]
+def _first_worlds(args, w):
+    """The first w worlds of worlds-minor kernel inputs."""
+    return tuple(None if a is None else a[..., :w].contiguous()
+                 for a in args)
+
+
+# (scene, worlds): 0 = all W = 8 worlds, one full block; 7 = an odd count,
+# so that one half-warp of the source's 16-lane worlds has no world
+SOLVER_SCENES = [("escape_room", 0), ("crowded", 0), ("escape_room", 7),
+                 ("crowded", 7), ("hide_seek", 7)]
+
+
+@pytest.mark.parametrize(
+    "scene,worlds", SOLVER_SCENES,
+    ids=[s + ("-odd_worlds" if w else "") for s, w in SOLVER_SCENES])
+def test_solver_source_matches_plain(solver_cases, scene, worlds):
+    spec, args = solver_cases[scene]
+    if worlds:
+        args = _first_worlds(args, worlds)
+    got = solver_cuda._launch(spec, *args)
+    ref = solver_cuda.substep_solver_plain(spec, *args)
+    state, param = args[0], args[1]
+    assert got.shape == ref.shape == (33, *state.shape[1:])
     assert bool(torch.isfinite(got).all())
     for name, lo, hi, tol in SOLVER_FIELDS:
         d = float((got[lo:hi] - ref[lo:hi]).abs().max())
         assert d <= tol, (scene, name, d)
     assert float((got[:3] - state[:3]).abs().max()) > 1e-3
+    # static rows and rows outside the dynamic range: bit-equal, no
+    # presolve velocities
+    static = param[8] > 0.5
     if spec.solver_dynamic_range:
-        d0 = spec.solver_dynamic_range[0]
-        assert torch.equal(got[:13, :d0], state[:, :d0])
-        assert torch.equal(got[13:20, :d0], state[:7, :d0])
-        assert torch.equal(got[20:27, :d0], state[:7, :d0])
-        assert bool((got[27:, :d0] == 0).all())
+        d0, d1 = spec.solver_dynamic_range
+        static[:d0] = True
+        static[d1:] = True
+    assert torch.equal(got[:13][:, static], state[:, static])
+    assert torch.equal(got[13:20][:, static], state[:7][:, static])
+    assert torch.equal(got[20:27][:, static], state[:7][:, static])
+    assert bool((got[27:][:, static] == 0).all())
 
 
 @pytest.fixture(scope="module")
@@ -255,7 +294,7 @@ def hide_seek(cpu_kernels):
     so_got = solver_cuda._launch(env.cfg, *sargs)
     so_ref = solver_cuda.substep_solver_plain(env.cfg, *sargs)
     return dict(env=env, cands=cands, bp=bp_got, co=co_got, co_ref=sargs[2:7],
-                so=so_got, so_ref=so_ref, state=sargs[0])
+                so=so_got, so_ref=so_ref, state=sargs[0], sargs=sargs)
 
 
 def test_hide_seek_broadphase_source_equals_plain(hide_seek):

@@ -214,15 +214,15 @@ def with_grab_joints(state):
     return dataclasses.replace(state, singletons=singles)
 
 
-def raycast_planes(seed, tex):
+def raycast_planes(seed, tex, wv=4, t_pad=40):
     """Random inputs of the raycast kernel as numpy arrays: setup
-    [4, 40, 24] (36 live rows), attrs [4, 16, 40], dl [8, 256], atlas
-    [3 * tex, 2 * tex], made as chip_smoke.py makes its synthetic ones
-    (exact ties, disabled shadow rows, dead rows)."""
+    [wv, t_pad, 24] (t_pad - 4 live rows), attrs [wv, 16, t_pad], dl
+    [8, 256], atlas [3 * tex, 2 * tex], made as chip_smoke.py makes its
+    synthetic ones (exact ties, disabled shadow rows, dead rows)."""
     import chip_smoke
 
     return [x.numpy() for x in chip_smoke.synthetic_ray_planes(
-        np.random.RandomState(seed), 4, 40, 256, tex, "cpu")]
+        np.random.RandomState(seed), wv, t_pad, 256, tex, "cpu")]
 
 
 def raycast_scene(registry, seed=0, w=2, n_box=4):
