@@ -7,15 +7,17 @@ Phases, each printing its own lines:
   1. the card (nvidia-smi name and power limit) and the kernel build
      (one nvcc per csrc/*.cu source, all seven started together);
   2. the broadphase kernel against its plain PyTorch version at 4096
-     worlds, on random scenes (caps-saturating ones included) and on a
-     real Escape Room body state: every field exactly equal;
+     worlds, on random scenes (caps-saturating ones included, and one of
+     64 bodies, MAX_BODIES) and on a real Escape Room body state: every
+     field exactly equal;
   3. the lidar kernel against its plain version at the Escape Room shape
      (4096 worlds, 20 boxes, 2 agents x 30 rays): max abs diff <= 1e-5;
   4. the contacts kernel against its plain version at 4096 worlds, on a
      real Escape Room state and on a crowded scene of rotated, scaled
      boxes on a plane (caps 8/8/0, live hull-hull face and edge
-     contacts): ref, alt, num equal; normal, average point, penetration
-     within 1e-4 on ok lanes; manifold points within 1e-3, unordered;
+     contacts), in both SAT tiers: ref, alt, num equal; normal, average
+     point, penetration within 1e-4 on ok lanes; manifold points within
+     1e-3, unordered;
   5. the substep-solver kernel against its plain version at 4096 worlds,
      on the Escape Room state with grab joints on in part of the worlds
      and on the crowded scene's contacts: all 33 output fields within
@@ -70,7 +72,15 @@ Phases, each printing its own lines:
  16. per-kernel times (CUDA events) beside their bounds, as one JSON line
      of all eight kernels; B1, B2, B3 and B8 also at Hide & Seek's
      shape with their bounds there; B5's bound counts the live rows, and
-     its bound over every row is printed beside it.
+     its bound over every row is printed beside it. Each kernel has two
+     times: "wrapper ms" (timed: events around the calls as the host
+     enqueues them, the host's pace where its work per call outlasts the
+     kernel) and "device ms" (timed_device: the calls enqueued behind a
+     sleep kernel, so the card runs them back to back; it raises if the
+     host fell behind). The contacts kernel is also timed on its
+     hull-hull and its hull-plane candidates alone, and on the crowded
+     scene in both SAT tiers. After the build, each
+     kernel's registers, stack frame and local memory (cuobjdump).
 
 Any failure raises (non-zero exit). The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -80,6 +90,7 @@ Needs CUDA and nvcc; imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -109,6 +120,7 @@ RAY_TOL = 1e-5            # raycast kernel vs plain version, every plane
 RAY_SYN_WV = 256          # views of the synthetic option-set planes
 PIX_TOL, PIX_FRAC = 0.02, 0.002   # card vs CPU: rgb / depth per pixel
 TIMING_ITERS = 200
+DEVICE_ITERS = 100        # calls a device-only timing enqueues behind a sleep
 PLAIN_PHYSICS_ITERS = 3   # the plain contacts/solver take ~0.1 s a call
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor op/s
@@ -187,7 +199,10 @@ def card_line() -> str:
 
 
 def timed(fn, iters=TIMING_ITERS, warmup=5):
-    """Mean ms of fn() over iters launches (CUDA events, after warm-up)."""
+    """Mean ms of fn() over iters launches (CUDA events, after warm-up).
+    The events bracket the host's enqueueing too: where a call's host
+    work (checks, allocations, the ctypes call) outlasts its kernel, this
+    is the host's pace ("wrapper ms")."""
     import torch
 
     for _ in range(warmup):
@@ -201,6 +216,89 @@ def timed(fn, iters=TIMING_ITERS, warmup=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+@functools.lru_cache(maxsize=None)
+def sleep_cycles_per_ms() -> float:
+    """Clock cycles that torch.cuda._sleep spins in one ms on this card
+    (measured once, over a 20 ms sleep)."""
+    import torch
+
+    cycles = 20_000_000
+    torch.cuda._sleep(1000)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    torch.cuda.synchronize()
+    return cycles / start.elapsed_time(end)
+
+
+def timed_device(fn, iters=DEVICE_ITERS, warmup=5):
+    """Mean device-only ms of fn() over iters calls ("device ms"): a sleep
+    kernel holds the stream while the host enqueues all the calls, so the
+    card runs them back to back and the events time the card alone. The
+    sleep lasts twice the calls' measured enqueue time plus 2 ms. Raises
+    if the start event had completed when the host finished enqueueing
+    (the card reached the calls first: a host-paced time)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((2.0 * enqueue_ms + 2.0) * sleep_cycles_per_ms()))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    ahead = not start.query()
+    torch.cuda.synchronize()
+    if not ahead:
+        raise AssertionError("timed_device: the card reached the timed "
+                             "calls before the host had enqueued them all")
+    return start.elapsed_time(end) / iters
+
+
+def kernel_ms(fn, iters=TIMING_ITERS, warmup=5):
+    """(wrapper ms, device ms) of fn(): timed, then timed_device with at
+    most DEVICE_ITERS calls."""
+    return (timed(fn, iters, warmup),
+            timed_device(fn, min(iters, DEVICE_ITERS), warmup))
+
+
+def resource_usage(libs):
+    """Print each kernel's registers, stack frame, shared and local memory
+    from cuobjdump --dump-resource-usage of its built library, a line per
+    kernel (the spill bytes are nvcc's report, printed at the build)."""
+    tool = "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        tool = "cuobjdump"
+    for src, lib in libs.items():
+        try:
+            out = subprocess.run([tool, "--dump-resource-usage", str(lib)],
+                                 capture_output=True, text=True, timeout=120)
+        except OSError as e:
+            print(f"  resources {src}: {e}")
+            continue
+        fn, shown = None, 0
+        for line in out.stdout.splitlines():
+            line = line.strip()
+            if line.startswith("Function "):
+                fn = line[len("Function "):].rstrip(":")
+            elif line.startswith("REG:") and fn:
+                print(f"  resources {src} {fn}: {line}")
+                shown += 1
+        if not shown:
+            print(f"  resources {src}: cuobjdump rc {out.returncode}: "
+                  f"{(out.stdout + out.stderr).strip()[-400:]}")
 
 
 def nbytes(*tensors) -> int:
@@ -258,6 +356,23 @@ def contacts_cost(c_in, om, c_out, cnt):
            + HP_OPS_CANDIDATE * cnt["hp_candidates"]
            + HP_OPS_CONTACT * cnt["hp_live"])
     return b, ops
+
+
+def contacts_split(name, c_in, om, card):
+    """Device ms of the contacts kernel on the hull-hull candidates alone
+    (no hull-plane slot) and on the hull-plane candidates alone: how its
+    time divides between the two lane kinds."""
+    from madrona_tpu_torch.ops import contacts_cuda
+
+    hh, hp, poses, obj = c_in
+    hh0, hp0 = hh[:, :0].contiguous(), hp[:, :0].contiguous()
+    hh_ms = timed_device(lambda: contacts_cuda.contacts(hh, hp0, poses, obj,
+                                                        om))
+    hp_ms = timed_device(lambda: contacts_cuda.contacts(hh0, hp, poses, obj,
+                                                        om))
+    print(f"contacts at the {name} shape, device ms: hull-hull lanes alone "
+          f"(P={hh.shape[1]}) {hh_ms:.4f}, hull-plane lanes alone "
+          f"(P={hp.shape[1]}) {hp_ms:.4f} ({card})")
 
 
 def solver_cost(cfg, state, param, c_out, jargs, cnt, n_joints, s_out):
@@ -343,6 +458,10 @@ def check_broadphase(sim):
         ("saturating", om_rand, random_scene(np.random.RandomState(3),
                                              om_rand, 4, 21, True),
          bp.CandidateCaps(hull_hull=2, hull_plane=1, sphere_any=1), True),
+        ("bodies_64", om_rand, random_scene(np.random.RandomState(4),
+                                            om_rand, 4, 64, False),
+         bp.CandidateCaps(hull_hull=96, hull_plane=64, sphere_any=96),
+         False),
         ("escape_room", om_er, body_er, env.caps, False),
     ]
     fields = ("hh", "hh_num", "hp", "hp_num", "sp", "sp_num", "sp_kind",
@@ -523,14 +642,16 @@ def compare_tables(what, name, got, ref):
     return con_err, pts_err
 
 
-def check_contacts(name, args, om, n_hh, want_face_and_edge):
-    """Phase 4 on one scene. Returns (kernel outputs, largest float
-    difference, the scene's lane counts for the operation count)."""
+def check_contacts(name, args, om, n_hh, want_face_and_edge,
+                   edge_dirs=True):
+    """Phase 4 on one scene, in one SAT tier (edge_dirs, else edge
+    pairs). Returns (kernel outputs, largest float difference, the
+    scene's lane counts for the operation count)."""
     import torch
     from madrona_tpu_torch.ops import contacts_cuda
 
-    got = contacts_cuda.contacts(*args, om)
-    ref = contacts_cuda.contacts_plain(*args, om)
+    got = contacts_cuda.contacts(*args, om, edge_dirs)
+    ref = contacts_cuda.contacts_plain(*args, om, edge_dirs)
     torch.cuda.synchronize()
     con_err, pts_err = compare_tables("contacts", name, got, ref)
     num = ref[4]
@@ -641,6 +762,11 @@ def check_physics_kernels(probe):
     cr_args = contacts_inputs(body_cr, om_cr, caps_cr, cfg)
     cr_c, cr_err, _ = check_contacts("crowded", cr_args, om_cr,
                                      caps_cr.hull_hull, True)
+    for name, args, om_, n_hh, want in (
+            ("escape_room", er_args, om_er, env.caps.hull_hull, False),
+            ("crowded", cr_args, om_cr, caps_cr.hull_hull, True)):
+        cr_err = max(cr_err, check_contacts(f"{name} edge_pairs", args, om_,
+                                            n_hh, want, False)[1])
 
     st, pr = solver_cuda.pack_state(body, om_er)
     jargs = solver_cuda.pack_joints(papi.joints_view(state), er.N_BODIES)
@@ -1074,6 +1200,8 @@ def check_hide_seek_physics(sim):
     c_args = contacts_inputs(body, om, env.caps, cfg)
     c_out, co_err, counts = check_contacts("hide_seek", c_args, om,
                                            env.caps.hull_hull, False)
+    co_err = max(co_err, check_contacts("hide_seek edge_pairs", c_args, om,
+                                        env.caps.hull_hull, False, False)[1])
     if counts["hh_live"] < 2 * w:
         raise AssertionError("contacts hide_seek: too few live wedge lanes")
     st, pr = solver_cuda.pack_state(body, om)
@@ -1331,6 +1459,7 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
+    resource_usage(libs)
 
     # ---- 2-7: kernels against their plain versions, on random scenes
     # and on a real Escape Room state (a probe sim, 3 steps in)
@@ -1503,8 +1632,8 @@ def main() -> int:
     pack = broadphase_cuda.pack_bodies(body, om)
     cands = broadphase_cuda.broadphase(pack, env.caps, env.cfg.dt)
     bp_bytes, bp_ops = broadphase_cost(pack, cands)
-    bp_ms = timed(lambda: broadphase_cuda.broadphase(pack, env.caps,
-                                                     env.cfg.dt))
+    bp_ms = kernel_ms(lambda: broadphase_cuda.broadphase(pack, env.caps,
+                                                         env.cfg.dt))
     bp_route_ms = timed(lambda: broadphase_cuda.find_candidates_kernel(
         body, om, env.caps, env.cfg.dt))
     bp_plain_ms = timed(lambda: bp.find_candidates(body, om, env.caps,
@@ -1514,7 +1643,7 @@ def main() -> int:
     depth = lidar_cuda.lidar_obb(*largs)
     li_bytes = nbytes(*largs[:6], depth)
     li_ops = (depth.numel() * largs[0].shape[1]) * LIDAR_OPS_PER_RAY_BOX
-    li_ms = timed(lambda: lidar_cuda.lidar_obb(*largs))
+    li_ms = kernel_ms(lambda: lidar_cuda.lidar_obb(*largs))
     li_plain_ms = timed(lambda: plain_lidar(largs), 50)
     print(f"broadphase route (pack + kernel): {bp_route_ms:.4f} ms")
 
@@ -1522,7 +1651,13 @@ def main() -> int:
     c_in, c_out, cnt = scene["args"], scene["contacts"], scene["counts"]
     om_s = scene["om"]
     co_bytes, co_ops = contacts_cost(c_in, om_s, c_out, cnt)
-    co_ms = timed(lambda: contacts_cuda.contacts(*c_in, om_s))
+    co_ms = kernel_ms(lambda: contacts_cuda.contacts(*c_in, om_s))
+    contacts_split("escape_room", c_in, om_s, card)
+    for tier, dirs in (("edge_dirs", True), ("edge_pairs", False)):
+        cr_ms = timed_device(lambda: contacts_cuda.contacts(
+            *scene["crowded_args"], scene["crowded_om"], dirs))
+        print(f"contacts {tier} at the crowded scene (W={W}, caps 8/8/0): "
+              f"device {cr_ms:.4f} ms ({card})")
     co_plain_ms = timed(lambda: contacts_cuda.contacts_plain(*c_in, om_s),
                         PLAIN_PHYSICS_ITERS)
     cfg = env.cfg
@@ -1530,7 +1665,7 @@ def main() -> int:
     so_bytes, so_ops = solver_cost(
         cfg, scene["state"], scene["param"], c_out, scene["jargs"], cnt,
         scene["n_joints"], solver_cuda.substep_solver(cfg, *s_in))
-    so_ms = timed(lambda: solver_cuda.substep_solver(cfg, *s_in))
+    so_ms = kernel_ms(lambda: solver_cuda.substep_solver(cfg, *s_in))
     so_plain_ms = timed(
         lambda: solver_cuda.substep_solver_plain(cfg, *s_in),
         PLAIN_PHYSICS_ITERS)
@@ -1554,8 +1689,8 @@ def main() -> int:
             + HH_OPS_EDGE * h_cnt["hh_1pt"] if dirs else
             HH_OPS_CANDIDATE_PAIRS * h_cnt["hh_candidates"]
             + HH_OPS_EDGE_PAIRS * h_cnt["hh_1pt"]))
-        h_ms = timed(lambda: hh_narrowphase_cuda.hh_record(*hh_in, om_,
-                                                           dirs))
+        h_ms = kernel_ms(lambda: hh_narrowphase_cuda.hh_record(*hh_in, om_,
+                                                               dirs))
         h_plain_ms = (timed(lambda: hh_narrowphase_cuda.hh_record_plain(
             *hh_in, om_, dirs), plain_iters, 1) if plain_iters else None)
         return h_ms, h_plain_ms, h_bytes, h_ops
@@ -1568,8 +1703,8 @@ def main() -> int:
                                   scene["crowded_hh_counts"][tier], dirs, 0)
         b_ms, b_by = bound(b, ops)
         print(f"hh_narrowphase {tier} at the crowded scene (W={W}, P=8): "
-              f"{k_ms:.4f} ms/launch, bound {b_ms:.5f} ms ({b_by}: {b} B, "
-              f"{ops} ops) ({card})")
+              f"wrapper {k_ms[0]:.4f} ms/launch, device {k_ms[1]:.4f} ms, "
+              f"bound {b_ms:.5f} ms ({b_by}: {b} B, {ops} ops) ({card})")
 
     # the fused step: the Escape Room state with joints (phase 7) and the
     # arranged Hide & Seek state (phase 11)
@@ -1598,8 +1733,8 @@ def main() -> int:
                    + SOLVER_OPS_CONTACT_VEL) * fc["ok"]
                 + SOLVER_OPS_POINT * fc["points"]
                 + SOLVER_OPS_JOINT * n_live_j))
-        k_ms = timed(lambda: fused_cuda.fused_step(f_cfg, *f_args,
-                                                   *scene_["jargs"]))
+        k_ms = kernel_ms(lambda: fused_cuda.fused_step(f_cfg, *f_args,
+                                                       *scene_["jargs"]))
         pl_ms = timed(lambda: fused_cuda.fused_step_plain(
             f_cfg, *f_args, *scene_["jargs"]), PLAIN_PHYSICS_ITERS, 1)
         return k_ms, pl_ms, f_bytes, f_ops
@@ -1610,8 +1745,9 @@ def main() -> int:
         k_ms, pl_ms, b, ops = fused_cost(sp_scene)
         b_ms, b_by = bound(b, ops)
         print(f"fused_step {tier} at the sphere scene (W={W}, N=21, caps "
-              f"8/8/8): {k_ms:.4f} ms/launch, plain {pl_ms:.4f} ms, bound "
-              f"{b_ms:.5f} ms ({b_by}: {b} B, {ops} ops) ({card})")
+              f"8/8/8): wrapper {k_ms[0]:.4f} ms/launch, device "
+              f"{k_ms[1]:.4f} ms, plain {pl_ms:.4f} ms, bound {b_ms:.5f} ms "
+              f"({b_by}: {b} B, {ops} ops) ({card})")
 
     # raycast at the pixel path's shapes (phase 10's real scene)
     r_planes, r_opts, n_rays = ray_scene
@@ -1636,7 +1772,8 @@ def main() -> int:
           f"every row (the same-work yardstick of the kernel that tested "
           f"them all) {all_ms:.5f} ms ({all_by}: {all_ops} ops) ({card})")
     del r_out
-    ra_ms = timed(lambda: raycast_cuda.raytrace(*r_planes, **r_opts), 20, 2)
+    ra_ms = kernel_ms(lambda: raycast_cuda.raytrace(*r_planes, **r_opts),
+                      20, 2)
     ra_plain_ms = timed(
         lambda: raycast_cuda.raytrace_plain(*r_planes, **r_opts), 2, 1)
 
@@ -1662,17 +1799,18 @@ def main() -> int:
     }
     hs_ms = {
         "broadphase": (
-            timed(lambda: broadphase_cuda.broadphase(h_pack, hcfg.caps,
-                                                     hcfg.cfg.dt)),
+            kernel_ms(lambda: broadphase_cuda.broadphase(h_pack, hcfg.caps,
+                                                         hcfg.cfg.dt)),
             timed(lambda: bp.find_candidates(hb, hom, hcfg.caps,
                                              hcfg.cfg.dt), 20)),
         "contacts": (
-            timed(lambda: contacts_cuda.contacts(*hs_scene["c_args"], hom)),
+            kernel_ms(lambda: contacts_cuda.contacts(*hs_scene["c_args"],
+                                                     hom)),
             timed(lambda: contacts_cuda.contacts_plain(*hs_scene["c_args"],
                                                        hom),
                   PLAIN_PHYSICS_ITERS, 1)),
         "substep_solver": (
-            timed(lambda: solver_cuda.substep_solver(hcfg.cfg, *h_in)),
+            kernel_ms(lambda: solver_cuda.substep_solver(hcfg.cfg, *h_in)),
             timed(lambda: solver_cuda.substep_solver_plain(hcfg.cfg, *h_in),
                   PLAIN_PHYSICS_ITERS, 1)),
         "fused_step": hs_fu[:2],
@@ -1681,9 +1819,10 @@ def main() -> int:
         b, ops = hs_cost[name]
         b_ms, b_by = bound(b, ops)
         print(f"{name} at the hide_seek shape (W={HS_STATE_W}, N=14, caps "
-              f"7/9, J=4): {k_ms:.4f} ms/launch, plain {pl_ms:.4f} ms, "
-              f"bound {b_ms:.5f} ms ({b_by}: {b} B, {ops} ops), "
-              f"max_abs_diff {err!r} ({card})")
+              f"7/9, J=4): wrapper {k_ms[0]:.4f} ms/launch, device "
+              f"{k_ms[1]:.4f} ms, plain {pl_ms:.4f} ms, bound {b_ms:.5f} ms "
+              f"({b_by}: {b} B, {ops} ops), max_abs_diff {err!r} ({card})")
+    contacts_split("hide_seek", hs_scene["c_args"], hom, card)
 
     rows = []
     sub = path_launches["escape_room kernel_sublane"]
@@ -1726,11 +1865,12 @@ def main() -> int:
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": n_launch, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None,
+            "ms": ms[0], "device_ms": ms[1], "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
-        print(f"{name}: {ms:.4f} ms/launch, plain {plain_ms:.4f} ms, "
-              f"bound {b_ms:.5f} ms ({b_by}: {b} B, {ops} ops) ({card})")
+        print(f"{name}: wrapper {ms[0]:.4f} ms/launch, device {ms[1]:.4f} "
+              f"ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}: "
+              f"{b} B, {ops} ops) ({card})")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,4 +1,4 @@
-// All-pairs broadphase + typed candidate compaction, one thread per world.
+// All-pairs broadphase + typed candidate compaction, a warp per world.
 //
 // Replaces the Pallas TPU kernel madrona_tpu/ops/broadphase_pallas.py
 // (_bp_kernel, built by make_broadphase). Its plain PyTorch version is
@@ -15,17 +15,29 @@
 //
 // What bounds it on the H100: memory. Per world it reads the packed
 // [22, N] body block once (22*N floats) and writes 2*(cap_hh + cap_hp +
-// cap_sp) + cap_sp + 3 ints and one byte; the arithmetic (~60 flops per
-// body, ~10 compares per pair) is far below the card's rate.
+// cap_sp) + cap_sp + 3 ints and one byte; the arithmetic (~110 flops per
+// body, ~12 per pair) is far below the card's rate. At the main paths'
+// shapes the bound is a few microseconds, about a launch's latency: what
+// the kernel can lose is latency, not bandwidth.
 //
-// What the design does about it: the input is the W-minor planar pack
-// [22, N, W], so the 32 threads of a warp (32 neighbouring worlds) read
-// 32 neighbouring floats per load, fully coalesced. The Pallas kernel's
-// log-shift cumsums and one-hot compaction existed only because Mosaic
-// has neither cumsum nor gather; here the thread walks i < j in
-// row-major order with one running counter per type, which is exactly
-// that rank order, and writes the Candidates' int32 W-major layout
-// directly. The per-body AABBs live in per-thread local arrays (L1).
+// What the design does about it. A block takes a tile of 8 worlds, a warp
+// each (256 threads: 4096 worlds are 512 blocks and 4096 warps, enough
+// to keep every SM busy).
+//   1. The block's threads walk (body, world of the tile), consecutive
+//      threads on consecutive worlds, so the loads of the W-minor
+//      [22, N, W] pack stay coalesced; each computes one body's AABB
+//      with the plain version's expressions, in its order, and leaves it
+//      in shared memory with the body's type, live and static flags.
+//   2. A warp walks its world's pairs in row-major order, 32 at a time, a
+//      lane a pair. For each type, m = __ballot_sync of the lanes' hits;
+//      a hitting lane's slot is the running count plus the hits of the
+//      lanes below it (__popc(m & lanemask_lt)), written while below the
+//      cap; the count grows by __popc(m). That is the serial append's
+//      row-major rank order exactly, with no atomics.
+//   3. The lanes fill the slots [min(count, cap), cap) with the sentinel;
+//      lane 0 writes the counts and the overflow flag.
+// The Pallas kernel's log-shift cumsums and one-hot compaction existed
+// only because Mosaic has neither cumsum nor gather.
 //
 // Compiled with --fmad=false: the AABB arithmetic feeds <= comparisons
 // that decide integer outputs, so it must round exactly as the plain
@@ -37,60 +49,78 @@
 namespace {
 
 constexpr int kMaxBodies = 64;   // checked by the Python wrapper
+constexpr int kWorldsPerBlock = 8;
+constexpr int kThreads = 32 * kWorldsPerBlock;
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kTypeNone = 0;
 constexpr int kTypeSphere = 1;
 constexpr int kTypeHull = 2;
 constexpr int kTypePlane = 4;
+// a body's flags beside its type in shared memory
+constexpr int kLive = 1 << 8;
+constexpr int kStatic = 1 << 9;
 
 // pack rows: 0:3 pos | 3:7 rot (w,x,y,z) | 7:10 scale | 10:13 vel
 //   | 13:16 local aabb lo | 16:19 local aabb hi | 19 prim type
 //   | 20 live | 21 static
 constexpr int kPackFields = 22;
 
-struct Buffer {
+// One typed candidate list of one world, filled by its warp.
+struct List {
     int* pairs;   // [W, cap, 2]
+    int* num;     // [W]
+    int* kind;    // [W, cap] or null
     int cap;
-    int count;
+    int count;    // hits so far, the same in every lane
 };
 
-__device__ inline void append(Buffer& b, int world, int first, int second,
-                              int* kind, int kind_value) {
-    if (b.count < b.cap) {
-        int* slot = b.pairs + ((size_t)world * b.cap + b.count) * 2;
-        slot[0] = first;
-        slot[1] = second;
-        if (kind) kind[(size_t)world * b.cap + b.count] = kind_value;
+// Append the lanes' hits of this round of 32 pairs, in lane order.
+__device__ inline void append(List& l, int world, bool hit, int first,
+                              int second, int kind_value, unsigned below) {
+    const unsigned m = __ballot_sync(kFull, hit);
+    if (hit) {
+        const int slot = l.count + __popc(m & below);
+        if (slot < l.cap) {
+            int* at = l.pairs + ((size_t)world * l.cap + slot) * 2;
+            at[0] = first;
+            at[1] = second;
+            if (l.kind) l.kind[(size_t)world * l.cap + slot] = kind_value;
+        }
     }
-    b.count++;
+    l.count += __popc(m);
 }
 
-__device__ inline void finish(Buffer& b, int world, int n, int* num,
-                              int* kind) {
-    for (int c = b.count; c < b.cap; ++c) {
-        int* slot = b.pairs + ((size_t)world * b.cap + c) * 2;
-        slot[0] = n;
-        slot[1] = n;
-        if (kind) kind[(size_t)world * b.cap + c] = kTypeNone;
+// The sentinel n in every slot past the count; lane 0 writes the count.
+__device__ inline void finish(const List& l, int world, int n, int lane) {
+    const int used = l.count < l.cap ? l.count : l.cap;
+    for (int c = used + lane; c < l.cap; c += 32) {
+        int* at = l.pairs + ((size_t)world * l.cap + c) * 2;
+        at[0] = n;
+        at[1] = n;
+        if (l.kind) l.kind[(size_t)world * l.cap + c] = kTypeNone;
     }
-    num[world] = b.count < b.cap ? b.count : b.cap;
+    if (lane == 0) l.num[world] = used;
 }
 
-__global__ void broadphase_kernel(
+__global__ void __launch_bounds__(kThreads) broadphase_kernel(
     const float* __restrict__ pack, int n, int num_worlds, float dt,
     int* hh, int* hh_num, int cap_hh,
     int* hp, int* hp_num, int cap_hp,
     int* sp, int* sp_num, int* sp_kind, int cap_sp,
     uint8_t* overflow) {
-    const int w = blockIdx.x * blockDim.x + threadIdx.x;
-    if (w >= num_worlds) return;
+    // per world of the tile: lo [3][n], hi [3][n], type | flags [n]
+    extern __shared__ float smem[];
+    const int per_world = 7 * n;
 
-    float lo[kMaxBodies][3], hi[kMaxBodies][3];
-    int ptype[kMaxBodies];
-    bool live[kMaxBodies], is_static[kMaxBodies];
+    const int w0 = blockIdx.x * kWorldsPerBlock;
+    const int tile = min(kWorldsPerBlock, num_worlds - w0);
 
+    // 1. every body's world AABB of the tile's worlds
     const size_t plane = (size_t)n * num_worlds;
-    for (int i = 0; i < n; ++i) {
-        const float* p = pack + (size_t)i * num_worlds + w;
+    for (int t = threadIdx.x; t < n * kWorldsPerBlock; t += kThreads) {
+        const int i = t / kWorldsPerBlock, wi = t % kWorldsPerBlock;
+        if (wi >= tile) continue;
+        const float* p = pack + (size_t)i * num_worlds + w0 + wi;
         float f[kPackFields];
         for (int k = 0; k < kPackFields; ++k) f[k] = p[k * plane];
 
@@ -115,42 +145,72 @@ __global__ void broadphase_kernel(
             const float ne = fabsf(m[r][0]) * e[0] + fabsf(m[r][1]) * e[1]
                              + fabsf(m[r][2]) * e[2];
             const float delta = f[10 + r] * dt;
-            lo[i][r] = (nc - ne) + fminf(delta, 0.0f);
-            hi[i][r] = (nc + ne) + fmaxf(delta, 0.0f);
+            float* at = smem + wi * per_world;
+            at[r * n + i] = (nc - ne) + fminf(delta, 0.0f);
+            at[(3 + r) * n + i] = (nc + ne) + fmaxf(delta, 0.0f);
         }
-        ptype[i] = (int)f[19];
-        live[i] = f[20] > 0.5f;
-        is_static[i] = f[21] > 0.5f;
+        reinterpret_cast<int*>(smem + wi * per_world + 6 * n)[i] =
+            (int)f[19] | (f[20] > 0.5f ? kLive : 0)
+            | (f[21] > 0.5f ? kStatic : 0);
+    }
+    __syncthreads();
+
+    // 2. a warp per world: its pairs in row-major order, a lane a pair
+    const int wi = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (wi >= tile) return;
+    const int w = w0 + wi;
+    const float* lo = smem + wi * per_world;
+    const float* hi = lo + 3 * n;
+    const int* info = reinterpret_cast<const int*>(lo + 6 * n);
+    const unsigned below = (1u << lane) - 1u;
+    List lhh{hh, hh_num, nullptr, cap_hh, 0};
+    List lhp{hp, hp_num, nullptr, cap_hp, 0};
+    List lsp{sp, sp_num, sp_kind, cap_sp, 0};
+
+    // this lane's pair: the lane-th after (0, 1) in row-major order, and
+    // 32 further each round (row i holds j = i+1 .. n-1)
+    int i = 0, j = 1 + lane;
+    const int pairs = n * (n - 1) / 2;
+    for (int round = 0; round < pairs; round += 32) {
+        while (i < n - 1 && j >= n) {
+            j = j - n + i + 2;
+            ++i;
+        }
+        bool hit = false;
+        int first = 0, second = 0, t_lo = 0, t_hi = 0;
+        if (round + lane < pairs) {
+            const bool overlap =
+                lo[i] <= hi[j] && lo[j] <= hi[i] &&
+                lo[n + i] <= hi[n + j] && lo[n + j] <= hi[n + i] &&
+                lo[2 * n + i] <= hi[2 * n + j] &&
+                lo[2 * n + j] <= hi[2 * n + i];
+            const int fi = info[i], fj = info[j];
+            hit = overlap && (fi & kLive) && (fj & kLive) &&
+                  !((fi & kStatic) && (fj & kStatic));
+            const int ta = fi & 0xff, tb = fj & 0xff;
+            const bool swap = ta > tb;
+            first = swap ? j : i;
+            second = swap ? i : j;
+            t_lo = min(ta, tb);
+            t_hi = max(ta, tb);
+        }
+        const int code = t_lo | t_hi;
+        append(lhh, w, hit && code == (kTypeHull | kTypeHull), first,
+               second, 0, below);
+        append(lhp, w, hit && code == (kTypeHull | kTypePlane), first,
+               second, 0, below);
+        append(lsp, w, hit && t_lo == kTypeSphere && t_hi != kTypeNone,
+               first, second, t_hi, below);
+        j += 32;
     }
 
-    Buffer bhh{hh, cap_hh, 0}, bhp{hp, cap_hp, 0}, bsp{sp, cap_sp, 0};
-    for (int i = 0; i < n; ++i) {
-        for (int j = i + 1; j < n; ++j) {
-            const bool overlap =
-                lo[i][0] <= hi[j][0] && lo[j][0] <= hi[i][0] &&
-                lo[i][1] <= hi[j][1] && lo[j][1] <= hi[i][1] &&
-                lo[i][2] <= hi[j][2] && lo[j][2] <= hi[i][2];
-            if (!(overlap && live[i] && live[j] &&
-                  !(is_static[i] && is_static[j])))
-                continue;
-            const int ta = ptype[i], tb = ptype[j];
-            const bool swap = ta > tb;
-            const int first = swap ? j : i, second = swap ? i : j;
-            const int t_lo = min(ta, tb), t_hi = max(ta, tb);
-            const int code = t_lo | t_hi;
-            if (code == (kTypeHull | kTypeHull))
-                append(bhh, w, first, second, nullptr, 0);
-            if (code == (kTypeHull | kTypePlane))
-                append(bhp, w, first, second, nullptr, 0);
-            if (t_lo == kTypeSphere && t_hi != kTypeNone)
-                append(bsp, w, first, second, sp_kind, t_hi);
-        }
-    }
-    finish(bhh, w, n, hh_num, nullptr);
-    finish(bhp, w, n, hp_num, nullptr);
-    finish(bsp, w, n, sp_num, sp_kind);
-    overflow[w] = (bhh.count > cap_hh) || (bhp.count > cap_hp) ||
-                  (bsp.count > cap_sp);
+    // 3. sentinels, counts, overflow
+    finish(lhh, w, n, lane);
+    finish(lhp, w, n, lane);
+    finish(lsp, w, n, lane);
+    if (lane == 0)
+        overflow[w] = (lhh.count > cap_hh) || (lhp.count > cap_hp) ||
+                      (lsp.count > cap_sp);
 }
 
 }  // namespace
@@ -162,9 +222,9 @@ extern "C" int broadphase_launch(
     void* sp, void* sp_num, void* sp_kind, int cap_sp,
     void* overflow, void* stream) {
     if (n > kMaxBodies) return (int)cudaErrorInvalidValue;
-    const int threads = 128;
-    const int blocks = (num_worlds + threads - 1) / threads;
-    broadphase_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+    const int blocks = (num_worlds + kWorldsPerBlock - 1) / kWorldsPerBlock;
+    const size_t bytes = (size_t)kWorldsPerBlock * 7 * n * sizeof(float);
+    broadphase_kernel<<<blocks, kThreads, bytes, (cudaStream_t)stream>>>(
         (const float*)pack, n, num_worlds, dt,
         (int*)hh, (int*)hh_num, cap_hh,
         (int*)hp, (int*)hp_num, cap_hp,

@@ -81,12 +81,27 @@ def _box_om(with_sphere):
     return reg.build()
 
 
-@pytest.mark.parametrize("caps", [(48, 20, 48), (2, 1, 1)],
-                         ids=["roomy", "saturating"])
-def test_broadphase_source_equals_plain(cpu_kernels, caps):
+# (worlds, bodies, caps, crowded). The source takes 8 worlds a block, a
+# warp a world, 32 pairs a round: 7 and 13 worlds leave a ragged block;
+# at 40 bodies a world's 780 pairs take 25 rounds and its lists run over
+# many of them; 64 bodies is MAX_BODIES; caps of 1 saturate every list.
+BROADPHASE_CASES = {
+    "roomy": (W, 12, (48, 20, 48), True),
+    "saturating": (W, 12, (2, 1, 1), True),
+    "worlds_7": (7, 12, (48, 20, 48), True),
+    "worlds_13": (13, 12, (48, 20, 48), True),
+    "bodies_40": (W, 40, (780, 40, 780), True),
+    "bodies_64": (W, 64, (300, 128, 300), False),
+    "caps_1": (W, 12, (1, 1, 1), True),
+}
+
+
+@pytest.mark.parametrize("case", list(BROADPHASE_CASES))
+def test_broadphase_source_equals_plain(cpu_kernels, case):
+    worlds, n, caps, crowded = BROADPHASE_CASES[case]
     om = _box_om(True)
-    body = torch_body(body_arrays(np.random.RandomState(1), W, 12, 4,
-                                  crowded=True))
+    body = torch_body(body_arrays(np.random.RandomState(1), worlds, n, 4,
+                                  crowded=crowded))
     caps = tbp.CandidateCaps(*caps)
     got = broadphase_cuda.broadphase(
         broadphase_cuda.pack_bodies(body, om), caps, 0.04)
@@ -95,6 +110,12 @@ def test_broadphase_source_equals_plain(cpu_kernels, caps):
               "overflow"):
         assert torch.equal(getattr(got, f), getattr(ref, f)), f
     assert int(got.hh_num.sum()) > 0 and int(got.sp_num.sum()) > 0
+    if case == "bodies_40":
+        # lists longer than a round, none full
+        assert int(ref.hh_num.max()) > 32 and int(ref.sp_num.max()) > 32
+        assert not bool(ref.overflow.any())
+    if case == "caps_1":
+        assert bool(ref.overflow.all())
 
 
 def test_lidar_source_matches_plain(cpu_kernels):
@@ -170,15 +191,102 @@ def crowded(cpu_kernels):
         contacts_cuda.contacts_plain(*args)
 
 
-@pytest.mark.parametrize("field", [0, 1, 4], ids=["ref", "alt", "num"])
-def test_contacts_source_rows_equal_plain(crowded, field):
-    _, _, got, ref = crowded
-    assert got[field].dtype == torch.int32
-    assert torch.equal(got[field], ref[field])
-    if field == 4:
-        hh = ref[4][:8]
-        assert int((hh >= 3).sum()) >= 5 and int((hh == 1).sum()) >= 5
-        assert int((ref[4][8:] > 0).sum()) >= 10
+def _mixed_tile_scene():
+    """Contacts inputs at 20 worlds (the source's tiles of 16 worlds: a
+    full one, whose 39 hull-hull lanes go a thread each, and a ragged one,
+    whose 12 go a warp each): crowded boxes with hull-hull caps of 4,
+    every slot live in most worlds; no hull-hull candidate in every third
+    world, no hull-plane one in every fourth, and a dead slot 0 before
+    live ones in world 1."""
+    om = _box_om(False)
+    w, n = 20, er.N_BODIES
+    body = torch_body(body_arrays(np.random.RandomState(5), w, n, 3,
+                                  crowded=True))
+    cands = tbp.find_candidates(body, om, tbp.CandidateCaps(4, 8, 0), 0.04)
+    hh, hp = cands.hh.clone(), cands.hp.clone()
+    hh[0::3] = n
+    hp[1::4] = n
+    hh[1, 0] = n
+    pred = txpbd.integrate(body, om, 0.01, (0.0, 0.0, -9.8))
+    poses, obj = contacts_cuda.pack_poses(pred, body.obj_id)
+    return hh, hp, poses, obj, om
+
+
+def _stacked_scene():
+    """Contacts inputs of axis-aligned stacks of equal unit cubes on a
+    plane (5 worlds: 15 hull-hull lanes, which the source takes a warp
+    each): three cubes stacked, two side by side, each pressed 0.01 into
+    the next, a world's stacks shifted by a multiple of 0.25. Equal
+    faces, depths and areas tie at every arg-best."""
+    om = _box_om(False)
+    w, n = 5, 6
+    pos = np.zeros((w, n, 3), np.float32)
+    for k in range(3):
+        pos[:, 1 + k] = (0.0, 0.0, 0.5 + k * 0.99)
+    pos[:, 4] = (3.0, 0.0, 0.49)
+    pos[:, 5] = (3.99, 0.0, 0.49)
+    pos[:, 1:, 0] += 0.25 * np.arange(w, dtype=np.float32)[:, None]
+    rot = np.zeros((w, n, 4), np.float32)
+    rot[..., 0] = 1.0
+    obj = np.ones((w, n), np.int32)
+    obj[:, 0] = 0
+    resp = np.full((w, n), txpbd.RESPONSE_DYNAMIC, np.int32)
+    resp[:, 0] = txpbd.RESPONSE_STATIC
+    z3 = np.zeros((w, n, 3), np.float32)
+    z4 = np.zeros((w, n, 4), np.float32)
+    body = torch_body(dict(
+        pos=pos, rot=rot, scale=np.ones((w, n, 3), np.float32), vel=z3,
+        omega=z3, obj_id=obj, response=resp, ext_force=z3, ext_torque=z3,
+        prev_x=z3, prev_q=z4, presolve_x=z3, presolve_q=z4, presolve_v=z3,
+        presolve_w=z3, active=np.ones((w, n), bool)))
+    cands = tbp.find_candidates(body, om, tbp.CandidateCaps(8, 8, 0), 0.04)
+    poses, obj_t = contacts_cuda.pack_poses(body, body.obj_id)
+    return cands.hh.contiguous(), cands.hp.contiguous(), poses, obj_t, om
+
+
+# the crowded scene's integer tables (one case each), then two scenes of
+# their own with every table compared, in both SAT tiers
+CONTACT_ROW_CASES = [
+    ("crowded", True, 0, "ref"), ("crowded", True, 1, "alt"),
+    ("crowded", True, 4, "num"),
+    ("mixed_tile", True, None, "mixed_tile-edge_dirs"),
+    ("mixed_tile", False, None, "mixed_tile-edge_pairs"),
+    ("stacked_ties", True, None, "stacked_ties-edge_dirs"),
+    ("stacked_ties", False, None, "stacked_ties-edge_pairs"),
+]
+
+
+@pytest.mark.parametrize("scene,edge_dirs,field",
+                         [c[:3] for c in CONTACT_ROW_CASES],
+                         ids=[c[3] for c in CONTACT_ROW_CASES])
+def test_contacts_source_rows_equal_plain(crowded, scene, edge_dirs, field):
+    if scene == "crowded":
+        _, _, got, ref = crowded
+        assert got[field].dtype == torch.int32
+        assert torch.equal(got[field], ref[field])
+        if field == 4:
+            hh = ref[4][:8]
+            assert int((hh >= 3).sum()) >= 5 and int((hh == 1).sum()) >= 5
+            assert int((ref[4][8:] > 0).sum()) >= 10
+        return
+    args = _mixed_tile_scene() if scene == "mixed_tile" else _stacked_scene()
+    got = contacts_cuda._launch(*args, edge_dirs=edge_dirs)
+    ref = contacts_cuda.contacts_plain(*args, edge_dirs=edge_dirs)
+    _assert_tables_match(got, ref)
+    hh, hp, poses = args[:3]
+    n, ph = poses.shape[0], hh.shape[1]
+    hh_num = ref[4][:ph]
+    if scene == "mixed_tile":
+        cand = hh[..., 0] < n                                 # [W, PH]
+        assert int((~cand.any(1)).sum()) >= 6
+        assert int(cand.all(1).sum()) >= 6
+        assert int((hh_num > 0).sum()) >= 20
+        assert int((ref[4][ph:] > 0).sum()) >= 20
+    else:
+        # every stacked pair a 4-point face contact, every bottom cube
+        # on the plane
+        assert int((hh_num == 4).sum()) == 3 * hh.shape[0]
+        assert int((ref[4][ph:] == 4).sum()) == 3 * hh.shape[0]
 
 
 def _assert_tables_match(got, ref):
