@@ -31,7 +31,12 @@ Phases, each printing its own lines:
      tolerances, static rows bit-equal to their inputs: on the Escape
      Room state with joints at 4096 worlds and on a scene of a plane, two
      box sizes and spheres with hull-hull, hull-plane and sphere lanes
-     live at 4096 worlds (the Hide & Seek scene follows in phase 11);
+     live at 4096 worlds (the Hide & Seek scene follows in phase 11).
+     Phases 6, 7 and 11 print, for each scene, how many of the record
+     or fused kernel's tiles gave their hull-hull lanes a warp each and
+     how many a thread each (from the kernel's default tiling and the
+     live candidates); after phase 11 each of the two kernels must have
+     taken both paths;
   8. the main path: make_sim(EscapeRoom(), 4096 worlds, seed 0) on the
      card, stepped with seeded random actions; every export finite, each
      of the four kernels launched once per step, a fresh sim with the
@@ -80,7 +85,9 @@ Phases, each printing its own lines:
      host fell behind). The contacts kernel is also timed on its
      hull-hull and its hull-plane candidates alone, and on the crowded
      scene in both SAT tiers. After the build, each
-     kernel's registers, stack frame and local memory (cuobjdump).
+     kernel's registers, stack frame and local memory (cuobjdump); the
+     JSON line carries the registers and stack of the kernel each
+     wrapper launches.
 
 Any failure raises (non-zero exit). The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -277,28 +284,35 @@ def kernel_ms(fn, iters=TIMING_ITERS, warmup=5):
 def resource_usage(libs):
     """Print each kernel's registers, stack frame, shared and local memory
     from cuobjdump --dump-resource-usage of its built library, a line per
-    kernel (the spill bytes are nvcc's report, printed at the build)."""
+    kernel (the spill bytes are nvcc's report, printed at the build).
+    Returns {source: {kernel symbol: (registers, stack bytes)}}."""
     tool = "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         tool = "cuobjdump"
+    usage = {}
     for src, lib in libs.items():
         try:
             out = subprocess.run([tool, "--dump-resource-usage", str(lib)],
                                  capture_output=True, text=True, timeout=120)
         except OSError as e:
             print(f"  resources {src}: {e}")
+            usage[src] = {}
             continue
-        fn, shown = None, 0
+        fn, found = None, {}
         for line in out.stdout.splitlines():
             line = line.strip()
             if line.startswith("Function "):
                 fn = line[len("Function "):].rstrip(":")
             elif line.startswith("REG:") and fn:
                 print(f"  resources {src} {fn}: {line}")
-                shown += 1
-        if not shown:
+                fields = dict(f.split(":", 1) for f in line.split()
+                              if ":" in f)
+                found[fn] = (int(fields["REG"]), int(fields["STACK"]))
+        if not found:
             print(f"  resources {src}: cuobjdump rc {out.returncode}: "
                   f"{(out.stdout + out.stderr).strip()[-400:]}")
+        usage[src] = found
+    return usage
 
 
 def nbytes(*tensors) -> int:
@@ -837,6 +851,29 @@ def record_points(rec):
         16, p, w)
 
 
+def tile_paths(hh, n, tile, limit):
+    """{path: tiles} of a tiled narrowphase kernel's launch over
+    candidates hh [W, P, 2] (rows, sentinel n): a tile whose live
+    hull-hull lanes number at most ``limit`` gives each a warp ("warp"),
+    else each a thread ("thread"); "none" has no live lane."""
+    import torch
+
+    live = ((hh >= 0) & (hh < n)).all(-1).sum(1)              # [W]
+    w = live.shape[0]
+    per = torch.nn.functional.pad(live, (0, -w % tile)).view(-1, tile).sum(1)
+    return {"warp": int(((per > 0) & (per <= limit)).sum()),
+            "thread": int((per > limit).sum()), "none": int((per == 0).sum())}
+
+
+def print_paths(kernel, name, hh, n, tiling):
+    tile, limit = tiling[:2]
+    paths = tile_paths(hh, n, tile, limit)
+    print(f"{kernel} tiles [{name}]: {tile} worlds a tile, hull-hull lanes "
+          f"a warp each up to {limit}: " + ", ".join(
+              f"{k} {v}" for k, v in paths.items()))
+    return paths
+
+
 def check_hh_record(name, args, om):
     """Phase 6 on one scene, in both SAT tiers. Returns (largest float
     difference, lane counts per tier for the operation count)."""
@@ -846,6 +883,8 @@ def check_hh_record(name, args, om):
     hh, _, poses, obj = args
     n = poses.shape[0]
     worst, counts = 0.0, {}
+    counts["paths"] = print_paths("hh record", name, hh, n, hhc.tiling(
+        poses.shape[2], hh.shape[1], om))
     for tier, dirs in (("edge_dirs", True), ("edge_pairs", False)):
         got = hhc.hh_record(hh, poses, obj, om, dirs)
         ref = hhc.hh_record_plain(hh, poses, obj, om, dirs)
@@ -944,6 +983,10 @@ def check_fused(name, cfg, body, om, cands, jargs, want_spheres=False):
     counts = fused_lane_counts(cfg, args)
     print(f"fused scene [{name}]: " + " ".join(
         f"{k}={v}" for k, v in counts.items()))
+    counts["paths"] = print_paths("fused", name, args[4], args[0].shape[1],
+                                  fused_cuda.tiling(
+                                      args[0], *args[4:7], args[8],
+                                      jargs[0].shape[0] if jargs else 0))
     if want_spheres and not (counts["hh_live"] and counts["hp_live"]
                              and counts["sp_live_hull"]
                              and counts["sp_live_plane"]
@@ -1459,7 +1502,7 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
-    resource_usage(libs)
+    usage = resource_usage(libs)
 
     # ---- 2-7: kernels against their plain versions, on random scenes
     # and on a real Escape Room state (a probe sim, 3 steps in)
@@ -1539,6 +1582,18 @@ def main() -> int:
     hs_errs, hs_scene = check_hide_seek_physics(hs_state_probe)
     fu_err = max(fu_err, hs_errs[3])
     del hs_state_probe
+    # both paths of the two tiled kernels ran: the record kernel's in
+    # phase 6, the fused step's in phases 7 and 11
+    for kernel, runs in (
+        ("hh record", [scene["hh_counts"]["paths"],
+                       scene["crowded_hh_counts"]["paths"]]),
+        ("fused", [scene["fused_counts"]["paths"], hs_scene["fused_counts"][
+            "paths"]] + [sp["fused_counts"]["paths"]
+                         for sp in scene["spheres"].values()])):
+        for path in ("warp", "thread"):
+            if not sum(r[path] for r in runs):
+                raise AssertionError(f"{kernel}: no tile took the {path} "
+                                     "path")
 
     # ---- 12: Hide & Seek's two launches, their kernel launches counted
     hs_kernels = [broadphase_cuda.KERNEL, contacts_cuda.KERNEL,
@@ -1830,6 +1885,21 @@ def main() -> int:
     fused_l = path_launches["escape_room fused"]
     i_hh, i_fu = all_k.index(hh_narrowphase_cuda.KERNEL), all_k.index(
         fused_cuda.KERNEL)
+    f_threads, f_blocks = fused_cuda.tiling(
+        scene["fused_args"][0], *scene["fused_args"][4:7],
+        scene["fused_args"][8])[2:]
+    # the symbol of the kernel each wrapper launches, in cuobjdump's names
+    symbols = {"hh_narrowphase.cu": "hh_record_kernel",
+               "fused_step.cu": f"fused_kernelILi{f_threads}ELi{f_blocks}E"}
+
+    def resources(src):
+        """(registers, stack bytes) of the kernel that src's wrapper
+        launches."""
+        file = os.path.basename(src)
+        fns = usage.get(file, {})
+        hits = [v for k, v in fns.items() if symbols.get(file, "") in k]
+        return hits[0] if len(hits) == 1 else (None, None)
+
     for name, src, rep, n_launch, err, ms, plain_ms, b, ops in (
         ("broadphase", "madrona_tpu_torch/csrc/broadphase.cu",
          "madrona_tpu/ops/broadphase_pallas.py:160",
@@ -1862,15 +1932,18 @@ def main() -> int:
          fu_ms, fu_plain_ms, fu_bytes, fu_ops),
     ):
         b_ms, b_by = bound(b, ops)
+        regs, stack = resources(src)
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": n_launch, "max_abs_err": err,
             "ms": ms[0], "device_ms": ms[1], "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "registers": regs, "stack": stack,
         })
         print(f"{name}: wrapper {ms[0]:.4f} ms/launch, device {ms[1]:.4f} "
               f"ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}: "
-              f"{b} B, {ops} ops) ({card})")
+              f"{b} B, {ops} ops), {regs} registers, {stack} B stack "
+              f"({card})")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

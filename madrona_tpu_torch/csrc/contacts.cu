@@ -68,7 +68,7 @@
 // fused-step kernels; the warp's versions of the hull-hull ones in
 // csrc/sat_warp.cuh give the same bits.
 
-#include "sat_warp.cuh"
+#include "lanes.cuh"
 
 namespace {
 
@@ -85,60 +85,6 @@ __host__ __device__ inline size_t table_floats(int n_obj, int v, int f,
     return (size_t)n_obj * (pack_width(v, f, fv, e) + 4 * d + e);
 }
 
-// One lane of the tile: entry e is slot e / tile of world w0 + e % tile
-// (slot < ph: hull-hull candidate, else hull-plane); its two rows, and
-// whether both name bodies.
-struct Lane {
-    int slot, world, row_a, row_b;
-    bool live;
-};
-
-__device__ inline Lane tile_lane(const int* hh, const int* hp, int e,
-                                 int tile, int w0, int n, int ph, int pp) {
-    Lane l;
-    l.slot = e / tile;
-    l.world = w0 + e % tile;
-    const int* r = l.slot < ph ? hh + ((size_t)l.world * ph + l.slot) * 2
-                               : hp + ((size_t)l.world * pp + l.slot - ph) * 2;
-    l.row_a = r[0];
-    l.row_b = r[1];
-    l.live = l.row_a >= 0 && l.row_a < n && l.row_b >= 0 && l.row_b < n;
-    return l;
-}
-
-// Append the live entries of [lo, hi) to list, in order, by a block-wide
-// prefix of warp ballots; write the dead ones' empty outputs. Every thread
-// of the block calls it; returns the count, the same in every thread.
-__device__ int compact_lanes(const int* hh, const int* hp, const Out& o,
-                             int lo, int hi, int tile, int w0, int n,
-                             int ph, int pp, int num_worlds, int* list,
-                             int* warp_sums) {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    int total = 0;
-    for (int base = lo; base < hi; base += kThreads) {
-        const int e = base + threadIdx.x;
-        bool keep = false;
-        if (e < hi) {
-            const Lane l = tile_lane(hh, hp, e, tile, w0, n, ph, pp);
-            keep = l.live;
-            if (!keep)
-                write_empty(o, (size_t)l.slot * num_worlds + l.world, n);
-        }
-        const unsigned m = __ballot_sync(kFullWarp, keep);
-        if (lane == 0) warp_sums[warp] = __popc(m);
-        __syncthreads();
-        int offset = total, chunk = 0;
-        for (int k = 0; k < kWarps; ++k) {
-            offset += k < warp ? warp_sums[k] : 0;
-            chunk += warp_sums[k];
-        }
-        if (keep) list[offset + __popc(m & ((1u << lane) - 1u))] = e;
-        total += chunk;
-        __syncthreads();
-    }
-    return total;
-}
-
 __device__ inline Body lane_body(const Tables& t, const float* poses,
                                  const int* obj, int row, int w,
                                  int num_worlds) {
@@ -151,17 +97,16 @@ __device__ inline Body lane_body(const Tables& t, const float* poses,
 // outputs, the shapes, the tile.
 struct Ctx {
     Tables t;
-    const int* hh;
-    const int* hp;
+    Cands<2> cd;          // [hull-hull | hull-plane]
     const float* poses;
     const int* obj;
     Out o;
-    int n, ph, pp, num_worlds, tile, w0;
+    int n, num_worlds, tile, w0;
     bool pairs;
 };
 
 __device__ inline Lane ctx_lane(const Ctx& c, int e) {
-    return tile_lane(c.hh, c.hp, e, c.tile, c.w0, c.n, c.ph, c.pp);
+    return tile_lane(c.cd, e, c.tile, c.w0, c.n);
 }
 
 __device__ inline Body ctx_body(const Ctx& c, int row, int w) {
@@ -227,13 +172,16 @@ __global__ void __launch_bounds__(kThreads, 1) contacts_kernel(
 
     const int w0 = blockIdx.x * tile_worlds;
     const int tile = min(tile_worlds, num_worlds - w0);
-    const int n_hh = compact_lanes(hh, hp, o, 0, ph * tile, tile, w0, n, ph,
-                                   pp, num_worlds, list, warp_sums);
-    const int n_hp = compact_lanes(hh, hp, o, ph * tile, (ph + pp) * tile,
-                                   tile, w0, n, ph, pp, num_worlds,
-                                   list + n_hh, warp_sums);
-    const Ctx c{t, hh, hp, poses, obj, o, n, ph, pp, num_worlds, tile, w0,
-                pairs != 0};
+    const Ctx c{t, Cands<2>{{hh, hp}, {ph, pp}}, poses, obj, o, n,
+                num_worlds, tile, w0, pairs != 0};
+    auto dead = [&](const Lane& l) {
+        write_empty(o, (size_t)l.slot * num_worlds + l.world, n);
+    };
+    const int n_hh = compact_lanes<kThreads>(c.cd, 0, ph * tile, tile, w0,
+                                             n, list, warp_sums, dead);
+    const int n_hp = compact_lanes<kThreads>(c.cd, ph * tile,
+                                             (ph + pp) * tile, tile, w0, n,
+                                             list + n_hh, warp_sums, dead);
 
     // hull-hull lanes: a warp each where the tile has few of them (then
     // a lane's chain of dependent operations is the block's time), a
@@ -251,31 +199,9 @@ __global__ void __launch_bounds__(kThreads, 1) contacts_kernel(
         hull_plane_thread(c, list[n_hh + k]);
 }
 
-// Shared memory of a block: the tables, a scratch a warp, the warps'
-// sums and the tile's lane list.
+// Shared memory of a block: the tables and the lane machinery.
 inline size_t shared_bytes(size_t tables, int tile, int lanes) {
-    return tables + kWarps * sizeof(WarpScratch)
-           + (kWarps + (size_t)tile * lanes) * sizeof(int);
-}
-
-// The tile of one wave: the worlds spread over as many blocks as the card
-// holds at once at this kernel's registers and shared memory, rounded up
-// to a multiple of kTileWorlds.
-int one_wave_tile(int num_worlds, size_t tables, int lanes) {
-    int dev = 0, sms = 0, per_sm = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess ||
-        sms < 1)
-        return kTileWorlds;
-    const int widest = (num_worlds + sms - 1) / sms;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, contacts_kernel, kThreads,
-            shared_bytes(tables, widest, lanes)) != cudaSuccess ||
-        per_sm < 1)
-        per_sm = 1;
-    const int tile = (num_worlds + sms * per_sm - 1) / (sms * per_sm);
-    return (tile + kTileWorlds - 1) / kTileWorlds * kTileWorlds;
+    return tables + lane_bytes<kThreads>(tile, lanes);
 }
 
 }  // namespace
@@ -299,8 +225,13 @@ extern "C" int contacts_launch_tiled(
     if (ph + pp == 0) return (int)cudaSuccess;
     Out o{(int*)ref, (int*)alt, (float*)con, (float*)pts, (int*)num,
           (size_t)(ph + pp) * num_worlds};
-    const int tile = tile_worlds ? tile_worlds
-                                 : one_wave_tile(num_worlds, tables, ph + pp);
+    const int tile =
+        tile_worlds ? tile_worlds
+                    : one_wave_tile(contacts_kernel, kThreads, num_worlds,
+                                    kTileWorlds, 1 << 30, [&](int t) {
+                                        return shared_bytes(tables, t,
+                                                            ph + pp);
+                                    });
     const size_t bytes = shared_bytes(tables, tile, ph + pp);
     cudaError_t err = cudaFuncSetAttribute(
         contacts_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

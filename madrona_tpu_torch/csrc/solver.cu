@@ -51,8 +51,7 @@
 
 namespace {
 
-constexpr int kLanes = 16;                        // lanes per world
-constexpr int kThreads = kWorldsPerBlock * kLanes;
+constexpr int kThreads = kWorldsPerBlock * kWorldLanes;
 // blocks an SM can hold by their shared memory at Hide & Seek's shape;
 // the register count must not lower it (at most 128 a thread)
 constexpr int kMinBlocks = 4;
@@ -80,9 +79,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     }
     __syncthreads();
 
-    const int lw = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
+    const int lw = threadIdx.x / kWorldLanes;
+    const int lane = threadIdx.x % kWorldLanes;
     World s = world_at(L, fbase + lw * L.fpw, ibase + lw * L.ipw, n, c, j);
-    if (w0 + lw < a.w) run_substeps<kLanes>(s, a, lane);
+    if (w0 + lw < a.w) run_substeps(s, a, lane);
     __syncthreads();
 
     for (int i = threadIdx.x; i < kOutF * n * kWorldsPerBlock; i += kThreads) {

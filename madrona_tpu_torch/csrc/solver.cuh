@@ -1,6 +1,6 @@
 // XPBD substep device functions shared by the substep-solver and
-// fused-step kernels (csrc/solver.cu, fused_step.cu): kLanes lanes of a
-// warp per world (16 in the substep solver, 32 in the fused step), the
+// fused-step kernels (csrc/solver.cu, fused_step.cu): kWorldLanes lanes
+// of a warp per world (half a warp, two worlds a warp), the
 // world's bodies, parameters, contacts and joints in shared memory.
 //
 // Per world and per substep, on contacts frozen for the step: integrate
@@ -33,6 +33,9 @@
 namespace {
 
 constexpr int kWorldsPerBlock = 8;
+constexpr int kWorldLanes = 16;  // lanes a world: at the main paths' shapes
+                                 // every per-body and per-constraint phase
+                                 // is one pass of them
 constexpr int kStateF = 13;
 constexpr int kOutF = 33;
 constexpr int kParamF = 20;
@@ -580,25 +583,22 @@ __device__ World world_at(const Layout& L, float* f, int* ip, int n, int c,
     return s;
 }
 
-// The lanes of the caller's warp that serve its world: kLanes of the 32.
-template <int kLanes>
+// The lanes of the caller's warp that serve its world: its half.
 __device__ __forceinline__ unsigned world_mask() {
-    static_assert(kLanes == 16 || kLanes == 32, "16 or 32 lanes a world");
-    if constexpr (kLanes == 32) return 0xffffffffu;
-    else
-        return ((1u << kLanes) - 1u) << ((threadIdx.x % 32) / kLanes * kLanes);
+    return ((1u << kWorldLanes) - 1u)
+           << ((threadIdx.x % 32) / kWorldLanes * kWorldLanes);
 }
 
-// Every substep of world s on its frozen contacts, by its kLanes lanes
-// (lane in [0, kLanes)). Rows outside [a.d0, a.d1) are static by contract.
-template <int kLanes>
+// Every substep of world s on its frozen contacts, by its kWorldLanes
+// lanes (lane in [0, kWorldLanes)). Rows outside [a.d0, a.d1) are static
+// by contract.
 __device__ void run_substeps(World& s, const Args& a, int lane) {
-    const unsigned mask = world_mask<kLanes>();
+    const unsigned mask = world_mask();
     const int n = s.n, c = s.c, j = s.j;
     // the solver scratch of every row as integrate leaves a row that
     // does not move: previous and presolve pose = pose, presolve
     // velocities 0 (rows outside the dynamic range keep these)
-    for (int b = lane; b < n; b += kLanes) {
+    for (int b = lane; b < n; b += kWorldLanes) {
         const V3 x = s.s3(F_X, b);
         const Q4 q = s.s4(F_Q, b);
         s.put3(F_PREV_X, b, x); s.put4(F_PREV_Q, b, q);
@@ -606,19 +606,19 @@ __device__ void run_substeps(World& s, const Args& a, int lane) {
         s.put3(F_PSV, b, V3{0.0f, 0.0f, 0.0f});
         s.put3(F_PSW, b, V3{0.0f, 0.0f, 0.0f});
     }
-    for (int k = lane; k < c; k += kLanes) {
+    for (int k = lane; k < c; k += kWorldLanes) {
         const int r = s.ref[k], al = s.alt[k];
         s.live[k] = s.con[7 * c + k] > 0.5f && r >= 0 && r < n &&
                     al >= 0 && al < n;
     }
-    for (int k = lane; k < j; k += kLanes) {
+    for (int k = lane; k < j; k += kWorldLanes) {
         const int e1 = s.je1[k], e2 = s.je2[k];
         s.jlive[k] = s.jnt[21 * j + k] > 0.5f && e1 >= 0 && e1 < n &&
                      e2 >= 0 && e2 < n;
     }
     __syncwarp(mask);
     // each body's contacts and joints, once a step
-    for (int b = a.d0 + lane; b < a.d1; b += kLanes) {
+    for (int b = a.d0 + lane; b < a.d1; b += kWorldLanes) {
         build_list(s, b, a.d0, a.d1, s.ref, s.alt, s.live, a.ref_live, c,
                    s.cofs, s.cent);
         if (j > 0)
@@ -629,16 +629,16 @@ __device__ void run_substeps(World& s, const Args& a, int lane) {
 
     float mean[7];
     for (int step = 0; step < a.substeps; ++step) {
-        for (int b = a.d0 + lane; b < a.d1; b += kLanes)
+        for (int b = a.d0 + lane; b < a.d1; b += kWorldLanes)
             integrate_body(s, a, b);
-        for (int k = lane; k < c; k += kLanes) s.lam[k] = 0.0f;
+        for (int k = lane; k < c; k += kWorldLanes) s.lam[k] = 0.0f;
         __syncwarp(mask);
 
         for (int it = 0; it < a.iters; ++it) {
-            for (int k = lane; k < c; k += kLanes)
+            for (int k = lane; k < c; k += kWorldLanes)
                 if (s.live[k]) position_contact(s, k);
             __syncwarp(mask);
-            for (int b = a.d0 + lane; b < a.d1; b += kLanes) {
+            for (int b = a.d0 + lane; b < a.d1; b += kWorldLanes) {
                 mean_delta(s, b, s.cofs, s.cent, 7, mean);
                 apply_pose_mean(s, b, mean);
             }
@@ -646,24 +646,24 @@ __device__ void run_substeps(World& s, const Args& a, int lane) {
         }
 
         if (j > 0) {
-            for (int k = lane; k < j; k += kLanes)
+            for (int k = lane; k < j; k += kWorldLanes)
                 if (s.jlive[k]) joint_slot(s, k);
             __syncwarp(mask);
-            for (int b = a.d0 + lane; b < a.d1; b += kLanes) {
+            for (int b = a.d0 + lane; b < a.d1; b += kWorldLanes) {
                 mean_delta(s, b, s.jofs, s.jent, 7, mean);
                 apply_pose_mean(s, b, mean);
             }
             __syncwarp(mask);
         }
 
-        for (int b = a.d0 + lane; b < a.d1; b += kLanes)
+        for (int b = a.d0 + lane; b < a.d1; b += kWorldLanes)
             set_velocity(s, a, b);
         __syncwarp(mask);
 
-        for (int k = lane; k < c; k += kLanes)
+        for (int k = lane; k < c; k += kWorldLanes)
             if (s.live[k]) velocity_contact(s, a, k);
         __syncwarp(mask);
-        for (int b = a.d0 + lane; b < a.d1; b += kLanes) {
+        for (int b = a.d0 + lane; b < a.d1; b += kWorldLanes) {
             mean_delta(s, b, s.cofs, s.cent, 6, mean);
             s.put3(F_V, b, s.s3(F_V, b) + V3{mean[0], mean[1], mean[2]});
             s.put3(F_W, b, s.s3(F_W, b) + V3{mean[3], mean[4], mean[5]});

@@ -42,6 +42,9 @@ KERNEL = CudaKernel(
     "contacts.cu", "contacts_launch",
     [_P] * 11 + [_I] * 11 + [_P],
 )
+# contacts_launch_tiled's arguments: contacts_launch's, then the tile
+# width and the warp-lane limit, before the stream
+TILED_ARGTYPES = KERNEL.argtypes[:-1] + [_I] * 2 + [_P]
 # the narrowphase kernels' per-thread hull tables (csrc/sat.cuh) are
 # sized for these
 MAX_DIMS = (8, 6, 4, 12)      # verts, faces, verts per face, edges
@@ -86,7 +89,10 @@ def check_tables(om):
         raise ValueError("hull tables exceed the kernels' shared memory")
 
 
-def _launch(hh, hp, poses, obj, om, edge_dirs=True):
+def _launch(hh, hp, poses, obj, om, edge_dirs=True, tiled=None):
+    """The launch. ``tiled``: (the ``contacts_launch_tiled`` entry, tile
+    width, warp-lane limit), called in place of the counted kernel (the
+    sweep script)."""
     n, _, w = poses.shape
     ph, pp = hh.shape[1], hp.shape[1]
     c = ph + pp
@@ -107,14 +113,19 @@ def _launch(hh, hp, poses, obj, om, edge_dirs=True):
     num = torch.empty((c, w), dtype=i32, device=dev)
     con = torch.empty((CON_F, c, w), dtype=f32, device=dev)
     pts = torch.empty((PTS_F, c, w), dtype=f32, device=dev)
-    KERNEL.launch(
-        hh.data_ptr(), hp.data_ptr(), poses.data_ptr(), obj.data_ptr(),
-        om.hull_pack.data_ptr(), om.hull_dirs_pack.data_ptr(),
-        ref.data_ptr(), alt.data_ptr(), con.data_ptr(), pts.data_ptr(),
-        num.data_ptr(),
-        n, w, ph, pp, n_obj, dims[0], dims[1], dims[2], dims[3], d,
-        0 if edge_dirs else 1, stream_ptr(),
-    )
+    args = (hh.data_ptr(), hp.data_ptr(), poses.data_ptr(), obj.data_ptr(),
+            om.hull_pack.data_ptr(), om.hull_dirs_pack.data_ptr(),
+            ref.data_ptr(), alt.data_ptr(), con.data_ptr(), pts.data_ptr(),
+            num.data_ptr(),
+            n, w, ph, pp, n_obj, dims[0], dims[1], dims[2], dims[3], d,
+            0 if edge_dirs else 1)
+    if tiled is None:
+        KERNEL.launch(*args, stream_ptr())
+    else:
+        fn, *setting = tiled
+        err = fn(*args, *setting, stream_ptr())
+        if err:
+            raise RuntimeError(f"contacts_launch_tiled: CUDA error {err}")
     return ref, alt, con, pts, num
 
 

@@ -149,6 +149,22 @@ class CudaKernel:
         self.launches += 1
 
 
+_ENTRIES: Dict[tuple, ctypes.CDLL] = {}
+
+
+def entry(source: str, symbol: str, argtypes):
+    """A C entry point of ``source`` other than the one its wrapper
+    launches and counts (a tiled launch for the sweep script, a query of
+    the default tiling): its library built and loaded here."""
+    key = (source, symbol)
+    if key not in _ENTRIES:
+        _ENTRIES[key] = ctypes.CDLL(str(build([source])[source]))
+    fn = getattr(_ENTRIES[key], symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def stream_ptr() -> int:
     return torch.cuda.current_stream().cuda_stream
 

@@ -43,7 +43,7 @@ from ..physics import xpbd
 from ..utils import math3d as m3
 from . import solver_cuda
 from .contacts_cuda import check_tables
-from .cuda_build import CudaKernel, check_tensor, stream_ptr
+from .cuda_build import CudaKernel, check_tensor, entry, stream_ptr
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -51,6 +51,13 @@ _F = ctypes.c_float
 KERNEL = CudaKernel(
     "fused_step.cu", "fused_launch", [_P] * 20 + [_I] * 17 + [_F] * 8 + [_P],
 )
+# fused_launch_tiled's arguments: fused_launch's, then the tile width, the
+# warp-lane limit, the threads a block and the blocks an SM of its launch
+# bounds, before the stream
+TILED_ARGTYPES = KERNEL.argtypes[:-1] + [_I] * 4 + [_P]
+# the (threads, blocks an SM) of its launch bounds that fused_launch_tiled
+# has; (0, 0) is fused_launch's
+VARIANTS = ((256, 1), (256, 2), (128, 2), (128, 3))
 
 
 def pack_fused(body, om):
@@ -105,8 +112,33 @@ def step_floats(cfg):
     return floats
 
 
+def tiling(state, hh, hp, sp, om, n_joints=0):
+    """(tile width, warp-lane limit, threads a block, blocks an SM) of the
+    kernel's default launch on these shapes: a tile whose live hull-hull
+    lanes number at most the limit gives each a warp, else each a
+    thread."""
+    _, n, w = state.shape
+    c = hh.shape[1] + hp.shape[1] + sp.shape[1]
+    out = [ctypes.c_int() for _ in range(4)]
+    fn = entry("fused_step.cu", "fused_tiling",
+               [_I] * 10 + [ctypes.POINTER(_I)] * 4)
+    err = fn(n, c, n_joints, w, om.hull_pack.shape[0],
+             *tuple(om.hull_dims), om.n_edge_dirs,
+             *(ctypes.byref(x) for x in out))
+    if err:
+        raise RuntimeError(f"fused_tiling: CUDA error {err}")
+    return tuple(x.value for x in out)
+
+
 def _launch(cfg, state, param, scale, obj, hh, hp, sp, sp_kind, om,
-            je1=None, je2=None, jnt=None, lanes=False):
+            je1=None, je2=None, jnt=None, lanes=False, substeps=None,
+            tiled=None):
+    """The launch. ``substeps``: the kernel's substep count where not
+    the config's (0 runs the integrate, the narrowphase and the I/O
+    alone: the sweep's split of a step's time). ``tiled``: (the
+    ``fused_launch_tiled`` entry, tile width, warp-lane limit, threads a
+    block, blocks an SM), called in place of the counted kernel (the
+    sweep and the tests)."""
     _, n, w = state.shape
     ph, pp, ps = hh.shape[1], hp.shape[1], sp.shape[1]
     j = 0 if jnt is None else je1.shape[0]
@@ -139,18 +171,26 @@ def _launch(cfg, state, param, scale, obj, hh, hp, sp, sp_kind, om,
                                 ((solver_cuda.CON_F, c, w), f32),
                                 ((solver_cuda.PTS_F, c, w), f32),
                                 ((c, w), i32))] if lanes else []
-    KERNEL.launch(
+    args = (
         state.data_ptr(), param.data_ptr(), scale.data_ptr(),
         obj.data_ptr(), hh.data_ptr(), hp.data_ptr(), sp.data_ptr(),
         sp_kind.data_ptr(), om.hull_pack.data_ptr(),
         om.hull_dirs_pack.data_ptr(), radius.data_ptr(), ptr(je1), ptr(je2),
         ptr(jnt), out.data_ptr(),
         *([t.data_ptr() for t in tables] if lanes else [0] * 5),
-        n, ph, pp, ps, j, w, cfg.substeps, cfg.jacobi_iters, n_obj,
-        dims[0], dims[1], dims[2], dims[3], om.n_edge_dirs,
+        n, ph, pp, ps, j, w,
+        cfg.substeps if substeps is None else substeps, cfg.jacobi_iters,
+        n_obj, dims[0], dims[1], dims[2], dims[3], om.n_edge_dirs,
         0 if cfg.sat_tier == "edge_dirs" else 1, geo.TYPE_PLANE,
-        geo.TYPE_HULL, *step_floats(cfg), stream_ptr(),
+        geo.TYPE_HULL, *step_floats(cfg),
     )
+    if tiled is None:
+        KERNEL.launch(*args, stream_ptr())
+    else:
+        fn, *setting = tiled
+        err = fn(*args, *setting, stream_ptr())
+        if err:
+            raise RuntimeError(f"fused_launch_tiled: CUDA error {err}")
     return (out, tuple(tables)) if lanes else out
 
 

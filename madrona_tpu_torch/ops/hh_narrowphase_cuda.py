@@ -32,7 +32,7 @@ import torch
 
 from ..physics import narrowphase as np_
 from .contacts_cuda import check_tables
-from .cuda_build import CudaKernel, check_tensor, stream_ptr
+from .cuda_build import CudaKernel, check_tensor, entry, stream_ptr
 
 REC_F = 22
 _P = ctypes.c_void_p
@@ -40,6 +40,9 @@ _I = ctypes.c_int
 KERNEL = CudaKernel(
     "hh_narrowphase.cu", "hh_record_launch", [_P] * 6 + [_I] * 10 + [_P],
 )
+# hh_record_launch_tiled's arguments: hh_record_launch's, then the tile
+# width and the warp-lane limit, before the stream
+TILED_ARGTYPES = KERNEL.argtypes[:-1] + [_I] * 2 + [_P]
 
 
 def record(ref, alt, points, num, normal):
@@ -74,7 +77,25 @@ def hh_record_plain(hh, poses, obj, om, edge_dirs=True):
     ))
 
 
-def _launch(hh, poses, obj, om, edge_dirs=True):
+def tiling(w, p, om):
+    """(tile width, warp-lane limit) of the kernel's default launch at W
+    worlds and P candidate slots: a tile whose live lanes number at most
+    the limit gives each a warp, else each a thread."""
+    dims = tuple(om.hull_dims)
+    tile, limit = ctypes.c_int(), ctypes.c_int()
+    fn = entry("hh_narrowphase.cu", "hh_record_tiling",
+               [_I] * 8 + [ctypes.POINTER(_I)] * 2)
+    err = fn(w, p, om.hull_pack.shape[0], *dims, om.n_edge_dirs,
+             ctypes.byref(tile), ctypes.byref(limit))
+    if err:
+        raise RuntimeError(f"hh_record_tiling: CUDA error {err}")
+    return tile.value, limit.value
+
+
+def _launch(hh, poses, obj, om, edge_dirs=True, tiled=None):
+    """The launch. ``tiled``: (the ``hh_record_launch_tiled`` entry, tile
+    width, warp-lane limit), called in place of the counted kernel (the
+    sweep and the tests)."""
     n, _, w = poses.shape
     p = hh.shape[1]
     f32, i32 = torch.float32, torch.int32
@@ -90,12 +111,17 @@ def _launch(hh, poses, obj, om, edge_dirs=True):
     rec = torch.empty((p, REC_F, w), dtype=f32, device=poses.device)
     if p == 0:
         return rec
-    KERNEL.launch(
-        hh.data_ptr(), poses.data_ptr(), obj.data_ptr(),
-        om.hull_pack.data_ptr(), om.hull_dirs_pack.data_ptr(),
-        rec.data_ptr(), n, w, p, n_obj, dims[0], dims[1], dims[2], dims[3],
-        om.n_edge_dirs, 0 if edge_dirs else 1, stream_ptr(),
-    )
+    args = (hh.data_ptr(), poses.data_ptr(), obj.data_ptr(),
+            om.hull_pack.data_ptr(), om.hull_dirs_pack.data_ptr(),
+            rec.data_ptr(), n, w, p, n_obj, dims[0], dims[1], dims[2],
+            dims[3], om.n_edge_dirs, 0 if edge_dirs else 1)
+    if tiled is None:
+        KERNEL.launch(*args, stream_ptr())
+    else:
+        fn, *setting = tiled
+        err = fn(*args, *setting, stream_ptr())
+        if err:
+            raise RuntimeError(f"hh_record_launch_tiled: CUDA error {err}")
     return rec
 
 

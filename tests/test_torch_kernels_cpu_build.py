@@ -16,7 +16,10 @@ the edge_pairs tier too, and the fused-step source on a crowded scene
 with sphere lanes (both tiers), on the Escape Room state with grab joints
 and on the Hide & Seek state; its narrowphase lanes (the contact tables
 before the substeps) are held against the plain version's like the
-contacts source's.
+contacts source's. The record and fused-step sources also run through
+their tiled entry points (hh_record_launch_tiled, fused_launch_tiled) at
+other tile widths with every hull-hull lane on a thread or on a warp:
+their outputs must equal the default launch's bit for bit.
 
 Tolerances: broadphase exact; lidar 1e-5; raycast 0 (every plane equal
 bit for bit, for the four option sets); contacts ref/alt/num exact,
@@ -25,6 +28,7 @@ the same, and the fused step's lanes too; solver and fused step poses 1e-3, velo
 velocities 2e-1 (tests/golden_inputs.py:484-492)."""
 
 import contextlib
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -68,7 +72,24 @@ def cpu_kernels(tmp_path_factory):
     with contextlib.ExitStack() as stack:
         for name, module in MODULES.items():
             stack.enter_context(shim.on_cpu(module, libs[name]))
-        yield
+        yield libs
+
+
+def _tiled_entry(libs, name, symbol, argtypes):
+    """A tiled entry point of a CPU build, as the sweep script binds it."""
+    fn = getattr(ctypes.CDLL(str(libs[name])), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+# (tile width, a tile's most hull-hull lanes a warp each): a ragged tile
+# of 3 worlds and one wider than the 8 worlds; every lane on a thread
+# (limit 0) or on a warp (a limit no tile reaches)
+WARP_ALWAYS = 1 << 30
+TILED_CASES = [(3, 0), (3, WARP_ALWAYS), (16, 0), (16, WARP_ALWAYS)]
+TILED_IDS = ["tile_3-thread", "tile_3-warp", "tile_16-thread",
+             "tile_16-warp"]
 
 
 def _box_om(with_sphere):
@@ -468,6 +489,35 @@ def test_hh_record_source_matches_plain(spheres, edge_dirs):
     assert bool((torch.where(dead, got[:, 3:], 0.0) == 0).all())
 
 
+@pytest.fixture(scope="module")
+def hh_runs(spheres):
+    """{edge_dirs: (the record kernel's inputs on the sphere scene, its
+    default launch's records, the plain version's)}, made once for the
+    tiled tests."""
+    body, om, cands = spheres
+    poses, obj = contacts_cuda.pack_poses(body, body.obj_id)
+    args = (cands.hh.contiguous(), poses, obj, om)
+    return {dirs: (args, hh_narrowphase_cuda._launch(*args, dirs),
+                   hh_narrowphase_cuda.hh_record_plain(*args, dirs))
+            for dirs in (True, False)}
+
+
+@pytest.mark.parametrize("tile,lanes_max", TILED_CASES, ids=TILED_IDS)
+@pytest.mark.parametrize("edge_dirs", [True, False],
+                         ids=["edge_dirs", "edge_pairs"])
+def test_hh_record_tiled_source_equals_default(cpu_kernels, hh_runs,
+                                               edge_dirs, tile, lanes_max):
+    args, default, ref = hh_runs[edge_dirs]
+    fn = _tiled_entry(cpu_kernels, "hh_narrowphase", "hh_record_launch_tiled",
+                      hh_narrowphase_cuda.TILED_ARGTYPES)
+    got = hh_narrowphase_cuda._launch(*args, edge_dirs,
+                                      tiled=(fn, tile, lanes_max))
+    assert torch.equal(got, default)
+    live = assert_lanes_match(hh_narrowphase_cuda.lanes(got),
+                              hh_narrowphase_cuda.lanes(ref))
+    assert live.sum() >= 40
+
+
 def test_contacts_source_edge_pairs_equals_plain(crowded):
     body, om, _, _ = crowded
     cands = tbp.find_candidates(body, om, tbp.CandidateCaps(8, 8, 0), 0.04)
@@ -530,3 +580,48 @@ def test_fused_source_matches_plain(spheres, name):
     static = param[8] > 0.5
     assert torch.equal(got[:13][:, static], state[:, static])
     assert float((got[:3] - state[:3]).abs().max()) > 1e-3
+
+
+@pytest.fixture(scope="module")
+def fused_runs(spheres):
+    """{case: (config, arguments, joint arguments, the default launch's
+    (out, tables), the plain step, the plain contact tables)}, made once
+    for the tiled tests."""
+    runs = {}
+
+    def get(name):
+        if name not in runs:
+            cfg, body, om, cands, jargs = _fused_case(name, spheres)
+            args = (*fused_cuda.pack_fused(body, om), cands.hh.contiguous(),
+                    cands.hp.contiguous(), cands.sp.contiguous(),
+                    cands.sp_kind.contiguous(), om)
+            runs[name] = (cfg, args, jargs,
+                          fused_cuda._launch(cfg, *args, *jargs, lanes=True),
+                          fused_cuda.fused_step_plain(cfg, *args, *jargs),
+                          fused_cuda.fused_contacts_plain(cfg, *args))
+        return runs[name]
+
+    return get
+
+
+@pytest.mark.parametrize("tile,lanes_max", TILED_CASES, ids=TILED_IDS)
+@pytest.mark.parametrize("name", ["spheres_dirs", "escape_room",
+                                  "hide_seek"])
+def test_fused_tiled_source_equals_default(cpu_kernels, fused_runs, name,
+                                           tile, lanes_max):
+    """Tiles of 3 worlds on blocks of 128 threads (launch bounds (128,
+    3): three blocks, the last one ragged), of 16 on the default blocks
+    of 256 (two worlds a warp: a block's 8 worlds leave half of its warps
+    without one)."""
+    cfg, args, jargs, (d_out, d_lanes), ref, ref_lanes = fused_runs(name)
+    fn = _tiled_entry(cpu_kernels, "fused_step", "fused_launch_tiled",
+                      fused_cuda.TILED_ARGTYPES)
+    bounds = (128, 3) if tile == 3 else (0, 0)
+    got, lanes = fused_cuda._launch(cfg, *args, *jargs, lanes=True,
+                                    tiled=(fn, tile, lanes_max, *bounds))
+    assert torch.equal(got, d_out)
+    assert all(torch.equal(a, b) for a, b in zip(lanes, d_lanes))
+    _assert_tables_match(lanes, ref_lanes)
+    for field, lo, hi, tol in SOLVER_FIELDS:
+        d = float((got[lo:hi] - ref[lo:hi]).abs().max())
+        assert d <= tol, (name, field, d)

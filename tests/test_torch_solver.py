@@ -305,7 +305,8 @@ def test_library_path_covers_included_headers(monkeypatch, tmp_path):
     shutil.copytree(cuda_build.CSRC, csrc)
     monkeypatch.setattr(cuda_build, "CSRC", csrc)
     assert cuda_build.includes("fused_step.cu") == [
-        "fused_step.cu", "sat.cuh", "solver.cuh", "vec.cuh"]
+        "fused_step.cu", "lanes.cuh", "solver.cuh", "sat_warp.cuh",
+        "vec.cuh", "sat.cuh"]
     before = {s: cuda_build.library_path(s) for s in cuda_build.SOURCES}
     with open(csrc / "vec.cuh", "a") as f:
         f.write("// edited\n")
@@ -318,6 +319,11 @@ def test_library_path_covers_included_headers(monkeypatch, tmp_path):
     again = {s: cuda_build.library_path(s) for s in cuda_build.SOURCES}
     assert {s for s in after if after[s] != again[s]} == {
         "solver.cu", "fused_step.cu"}
+    with open(csrc / "lanes.cuh", "a") as f:
+        f.write("// edited\n")
+    last = {s: cuda_build.library_path(s) for s in cuda_build.SOURCES}
+    assert {s for s in again if again[s] != last[s]} == {
+        "contacts.cu", "hh_narrowphase.cu", "fused_step.cu"}
 
 
 def test_launch_path_refuses_cpu_tensors():
