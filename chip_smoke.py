@@ -5,13 +5,20 @@
 
 Phases, each printing its own lines:
   1. the card (nvidia-smi name and power limit) and the kernel build
-     (one nvcc per csrc/*.cu source, all seven started together);
+     (one nvcc per csrc/*.cu source, all seven started together, and
+     one more for the lidar source that csrc/lidar.cu replaced, kept in
+     scripts/torch_lidar_compare.py);
   2. the broadphase kernel against its plain PyTorch version at 4096
      worlds, on random scenes (caps-saturating ones included, and one of
      64 bodies, MAX_BODIES) and on a real Escape Room body state: every
      field exactly equal;
   3. the lidar kernel against its plain version at the Escape Room shape
-     (4096 worlds, 20 boxes, 2 agents x 30 rays): max abs diff <= 1e-5;
+     (4096 worlds, 20 boxes, 2 agents x 30 rays), on a random scene and
+     on the Escape Room probe state: equal (max abs diff 0.0); the tile
+     its launch takes (worlds a block, from the occupancy API); its
+     in-range division path against IEEE division on 2^24 operand sets
+     over the kernel's range (scripts/torch_lidar_division.py): equal
+     bit for bit;
   4. the contacts kernel against its plain version at 4096 worlds, on a
      real Escape Room state and on a crowded scene of rotated, scaled
      boxes on a plane (caps 8/8/0, live hull-hull face and edge
@@ -87,7 +94,19 @@ Phases, each printing its own lines:
      scene in both SAT tiers. After the build, each
      kernel's registers, stack frame and local memory (cuobjdump); the
      JSON line carries the registers and stack of the kernel each
-     wrapper launches.
+     wrapper launches. The lidar is also timed, in the same call, by the
+     source it replaced (one thread a ray; it must equal the plain
+     version too), with the bound of what the function needs (the row's
+     bound_ms) and the same-work yardstick of the replaced source
+     (LIDAR_OPS_PER_RAY_BOX every (ray, box); the row's
+     same_work_bound_ms);
+ 17. rollout (models/base.py) of Escape Room at 4096 worlds for 400 steps
+     of bench.py's actions (RandomState(0)), through the resets at steps
+     200 and 400: broadphase, contacts, solver and lidar launched once a
+     step each; no candidate list over its cap at any step (the long
+     rollout assertion of tests/test_escape_room.py); done 1 at steps 200
+     and 400 for every world and nowhere else; exports and the final
+     body state finite; a fresh sim's rollout bit-identical; env-steps/s.
 
 Any failure raises (non-zero exit). The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -114,7 +133,8 @@ STEPS = 20
 SMALL_W = 8
 SMALL_STEPS = 3
 SMALL_TOL = 1e-3          # card vs CPU, float exports after 3 steps
-LIDAR_TOL = 1e-5          # kernel vs plain version
+LIDAR_TOL = 0.0           # kernel vs plain version: equal
+LIDAR_DIVISIONS = 1 << 24  # operand sets of the lidar's division check
 # contacts and solver kernels vs their plain versions: the JAX package's
 # golden bounds (tests/golden_inputs.py:484-492)
 CON_TOL = 1e-4            # normal, average point, largest penetration
@@ -126,6 +146,7 @@ HS_RENDER = 64
 RAY_TOL = 1e-5            # raycast kernel vs plain version, every plane
 RAY_SYN_WV = 256          # views of the synthetic option-set planes
 PIX_TOL, PIX_FRAC = 0.02, 0.002   # card vs CPU: rgb / depth per pixel
+ROLLOUT_STEPS = 400       # bench.py's steps: two episodes of 200
 TIMING_ITERS = 200
 DEVICE_ITERS = 100        # calls a device-only timing enqueues behind a sleep
 PLAIN_PHYSICS_ITERS = 3   # the plain contacts/solver take ~0.1 s a call
@@ -136,12 +157,19 @@ PEAK_F32 = 67e12
 # operation counts of the two kernels' arithmetic (see csrc/*.cu):
 # broadphase: ~111 per body (rotation matrix 33, center/extent 21,
 # center row sums 18, extent row sums 24, velocity expansion 15) and ~12
-# per pair (6 compares, 6 ands/branches); lidar: ~120 per (ray, box)
-# (two quaternion rotations 60, guards and divisions 27, slab 22, the
-# hit test and running min 11).
+# per pair (6 compares, 6 ands/branches); lidar: what the function
+# needs, the origin's box-local coordinates once a (world, agent, box),
+# ~39 (rotation 30, subtraction 3, guards 3, divisions 3), ~78 a (ray,
+# box) the self-mask shows (one rotation 30, reciprocals and divisions
+# 15, slab 22, hit test and running min 11) and one test a hidden one:
+# the lidar's bound. Beside it, the same-work yardstick of the source
+# csrc/lidar.cu replaced, ~120 every (ray, box) (two quaternion rotations
+# 60, guards and divisions 27, slab 22, the hit test and running min 11).
 BP_OPS_PER_BODY = 111
 BP_OPS_PER_PAIR = 12
 LIDAR_OPS_PER_RAY_BOX = 120
+LIDAR_OPS_PER_ORIGIN_BOX = 39
+LIDAR_OPS_PER_VISIBLE_RAY_BOX = 78
 # contacts (csrc/contacts.cu), counted per lane from this run's data.
 # A hull to world space ~825 (8 vertices x 36, 6 planes x 85, center 27).
 # A hull-hull candidate up to its separation test ~3,800: two hulls 1,650,
@@ -502,6 +530,17 @@ def check_broadphase(sim):
     return float(worst)
 
 
+def load_script(name):
+    """A module of the repo's scripts/ directory."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(HERE, "scripts", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def lidar_inputs(sim):
     """The env's lidar arguments at the sim's current state."""
     return sim.env.lidar_inputs(sim.state)
@@ -513,10 +552,11 @@ def plain_lidar(args):
     return lidar_obb_plain(*args)
 
 
-def check_lidar(sim):
-    """Phase 3. Returns the max abs diff over both scenes."""
+def random_lidar_args():
+    """The lidar's arguments on a random scene at the Escape Room shape
+    (W worlds, 20 boxes, 2 agents x 30 rays), two boxes hidden by the
+    self-mask."""
     import torch
-    from madrona_tpu_torch.ops import lidar_cuda
 
     rs = np.random.RandomState(11)
     n_inst, n_ag, n_rays = 20, 2, 30
@@ -526,7 +566,7 @@ def check_lidar(sim):
     ang = rs.uniform(0, 2 * np.pi, (W, n_ag, n_rays))
     mask = np.ones((n_ag, n_inst), bool)
     mask[0, 2] = mask[1, 5] = False
-    rand_args = (
+    return (
         t(rs.uniform(-8, 8, (W, n_inst, 3))), t(q),
         t(rs.uniform(0.2, 3.0, (W, n_inst, 3))),
         torch.from_numpy(mask).to(DEV), t(rs.uniform(-6, 6, (W, n_ag, 3))),
@@ -534,9 +574,16 @@ def check_lidar(sim):
                     0.1 * rs.randn(W, n_ag, n_rays)], -1)),
         50.0,
     )
+
+
+def check_lidar(sim):
+    """Phase 3. Returns the max abs diff over both scenes."""
+    import torch
+    from madrona_tpu_torch.ops import lidar_cuda
+
     worst = 0.0
-    for name, args in (("random", rand_args), ("escape_room",
-                                                lidar_inputs(sim))):
+    for name, args in (("random", random_lidar_args()),
+                       ("escape_room", lidar_inputs(sim))):
         got = lidar_cuda.lidar_obb(*args)
         ref = plain_lidar(args)
         torch.cuda.synchronize()
@@ -547,6 +594,20 @@ def check_lidar(sim):
         if not err <= LIDAR_TOL:
             raise AssertionError(f"lidar {name}: {err} > {LIDAR_TOL}")
         worst = max(worst, err)
+    tiling = lidar_cuda.tiling(W, *args[0].shape[1:2], *args[5].shape[1:3])
+    print("lidar tiling (occupancy API): " + ", ".join(
+        f"{k} {v}" for k, v in tiling.items()))
+    # the kernel's branch-free division and reciprocal against IEEE's,
+    # bit for bit, over their stated ranges
+    division = load_script("torch_lidar_division")
+    x, y = division.operands(np.random.RandomState(12), LIDAR_DIVISIONS, DEV)
+    off = division.mismatches(division.check(x, y))
+    print(f"lidar divisions: {LIDAR_DIVISIONS} operand sets over the "
+          f"kernel's range, in-range path against IEEE: guarded "
+          f"reciprocals differing {off[0]}, accepted quotients differing "
+          f"{off[1]}")
+    if off != (0, 0):
+        raise AssertionError("lidar: the in-range division differs")
     return worst
 
 
@@ -1421,6 +1482,93 @@ def check_card_vs_cpu(make_sim, make_env, what):
           f"int exports equal, float max_abs_diff={worst!r}")
 
 
+def check_rollout(make_sim, rollout, EscapeRoom, kernels, card):
+    """Phase 17: rollout of Escape Room at W worlds for ROLLOUT_STEPS
+    steps of bench.py's actions (RandomState(0)), through the episode
+    resets. The first run counts the kernels' launches (each once a step)
+    and every step's candidate occupancy at the shipped caps (no world
+    may overflow: tests/test_escape_room.py's long-rollout assertion);
+    done must be 1 at exactly the last step of each episode, for every
+    world; every export and the final state finite. A second run from a
+    fresh sim, timed (host clock, synchronized at both ends), must give
+    the same exports bit for bit."""
+    import torch
+    from madrona_tpu_torch.models import escape_room as er
+    from madrona_tpu_torch.physics import api as papi
+
+    env = EscapeRoom()
+    acts = env.random_actions(np.random.RandomState(0), ROLLOUT_STEPS, W)
+    inputs = {"action": acts.to(DEV),
+              "reset": torch.zeros((ROLLOUT_STEPS, W), dtype=torch.int32,
+                                   device=DEV)}
+    find = papi.find_candidates_kernel
+    zero = lambda: torch.zeros((), dtype=torch.int32, device=DEV)  # noqa
+    occ = {"hh": zero(), "hp": zero(), "sp": zero(), "overflow": zero()}
+
+    def watched(body, om, caps, dt):
+        c = find(body, om, caps, dt)
+        occ["hh"] = torch.maximum(occ["hh"], c.hh_num.max())
+        occ["hp"] = torch.maximum(occ["hp"], c.hp_num.max())
+        occ["sp"] = torch.maximum(occ["sp"], c.sp_num.max())
+        occ["overflow"] = occ["overflow"] + c.overflow.sum(dtype=torch.int32)
+        return c
+
+    sim = make_sim(env, num_worlds=W, seed=0, device=DEV)
+    papi.find_candidates_kernel = watched
+    try:
+        for k in kernels:
+            k.launches = 0
+        outs = rollout(sim, inputs)
+        launches = [k.launches for k in kernels]
+    finally:
+        papi.find_candidates_kernel = find
+    for k, n in zip(kernels, launches):
+        print(f"rollout: {k.symbol} launched {n} times in {ROLLOUT_STEPS} "
+              "steps")
+        if n != ROLLOUT_STEPS:
+            raise AssertionError(f"rollout: {k.symbol} {n} launches != "
+                                 f"{ROLLOUT_STEPS}")
+    occ = {k: int(v) for k, v in occ.items()}
+    print(f"rollout: largest candidate lists over {ROLLOUT_STEPS} steps x "
+          f"{W} worlds: hh {occ['hh']}/{env.caps.hull_hull}, hp "
+          f"{occ['hp']}/{env.caps.hull_plane}, sp {occ['sp']}/"
+          f"{env.caps.sphere_any}; (world, step)s that overflowed "
+          f"{occ['overflow']}")
+    if occ["overflow"]:
+        raise AssertionError("rollout: a candidate list overflowed its cap")
+    done = outs["done"]
+    want = torch.zeros_like(done)
+    want[er.EPISODE_LEN - 1::er.EPISODE_LEN] = 1
+    if tuple(done.shape) != (ROLLOUT_STEPS, W) or not torch.equal(done, want):
+        ends = sorted({int(i) + 1 for i in torch.nonzero(done)[:, 0]})
+        raise AssertionError(f"rollout: done at steps {ends}, not only at "
+                             f"every {er.EPISODE_LEN}th")
+    for name, v in outs.items():
+        if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"rollout: export {name} not finite")
+    for name, col in sim.state.tables[er.RIGID_BODY].columns.items():
+        for leaf in (col.values() if isinstance(col, dict) else [col]):
+            if leaf.is_floating_point() and not bool(
+                    torch.isfinite(leaf).all()):
+                raise AssertionError(f"rollout: final {name} not finite")
+    print(f"rollout: done at steps {er.EPISODE_LEN}, {2 * er.EPISODE_LEN} "
+          f"of {ROLLOUT_STEPS} for all {W} worlds and nowhere else; exports "
+          "and final body state finite")
+
+    again = make_sim(EscapeRoom(), num_worlds=W, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs2 = rollout(again, inputs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    for name in outs:
+        if not torch.equal(outs[name], outs2[name]):
+            raise AssertionError(f"rollout: {name} differs across fresh sims")
+    print(f"rollout: {W} worlds x {ROLLOUT_STEPS} steps in {secs:.3f} s, "
+          f"{W * ROLLOUT_STEPS / secs:.1f} env-steps/s; a fresh sim's "
+          f"rollout bit-identical ({card})")
+
+
 def step_ms(make_sim, make_env, acts):
     """ms per step of a fresh sim of ``make_env()`` at W worlds over
     steps 2..STEPS (host clock, synchronized at both ends)."""
@@ -1479,7 +1627,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from madrona_tpu_torch import make_sim
+    from madrona_tpu_torch import make_sim, rollout
     from madrona_tpu_torch.models.escape_room import EscapeRoom
     from madrona_tpu_torch.models.hide_seek import HideSeek
     from madrona_tpu_torch.ops import (
@@ -1493,11 +1641,17 @@ def main() -> int:
     print(card)
     kind = torch.cuda.get_device_name(0)
 
-    # ---- 1. build
+    # ---- 1. build (with the lidar source that lidar.cu replaced, kept in
+    # scripts/torch_lidar_compare.py, for phase 16's comparison)
+    lidar_compare = load_script("torch_lidar_compare")
     t0 = time.perf_counter()
+    old_lidar_build = lidar_compare.start_build()
     libs = cuda_build.build(cuda_build.SOURCES)
+    old_lidar, old_lidar_report = lidar_compare.load(old_lidar_build)
     print(f"build: {time.perf_counter() - t0:.1f} s -> "
           + ", ".join(p.name for p in libs.values()))
+    for line in old_lidar_report.splitlines():
+        print(f"  lidar.cu before its redesign: {line}")
     for src, log in cuda_build.BUILD_LOG.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -1697,9 +1851,33 @@ def main() -> int:
     largs = lidar_inputs(sim)
     depth = lidar_cuda.lidar_obb(*largs)
     li_bytes = nbytes(*largs[:6], depth)
-    li_ops = (depth.numel() * largs[0].shape[1]) * LIDAR_OPS_PER_RAY_BOX
     li_ms = kernel_ms(lambda: lidar_cuda.lidar_obb(*largs))
+    li_plain = plain_lidar(largs)
     li_plain_ms = timed(lambda: plain_lidar(largs), 50)
+    # the same work by the lidar.cu this one replaced (one thread a ray),
+    # in this call; the bound of what the function needs (the row's) and
+    # the same-work yardstick of the replaced source
+    old_err, old_ms, new_ms = lidar_compare.compare(old_lidar, largs,
+                                                    li_plain, timed_device)
+    n_agents, n_inst = largs[3].shape
+    visible = int(largs[3].sum(dim=1).repeat_interleave(
+        largs[5].shape[2]).sum()) * W
+    li_ops = (LIDAR_OPS_PER_VISIBLE_RAY_BOX * visible
+              + (depth.numel() * n_inst - visible)
+              + LIDAR_OPS_PER_ORIGIN_BOX * W * n_agents * n_inst)
+    same_ops = depth.numel() * n_inst * LIDAR_OPS_PER_RAY_BOX
+    li_bound_ms, li_bound_by = bound(li_bytes, li_ops)
+    same_ms, _ = bound(li_bytes, same_ops)
+    print(f"lidar at the escape_room shape (W={W}, I={n_inst}, A="
+          f"{n_agents}, R={largs[5].shape[2]}), device ms in this call: "
+          f"tiles of worlds (csrc/lidar.cu) {new_ms:.4f}, one thread a ray "
+          f"(before its redesign) {old_ms:.4f} (max_abs_diff {old_err!r}); "
+          f"bound of what the function needs {li_bound_ms:.5f} ms "
+          f"({li_bound_by}: {li_ops} ops, {visible} visible (ray, box)), "
+          f"same-work yardstick of the replaced source {same_ms:.5f} ms "
+          f"({same_ops} ops) ({card})")
+    if not old_err <= LIDAR_TOL:
+        raise AssertionError(f"lidar before its redesign: {old_err}")
     print(f"broadphase route (pack + kernel): {bp_route_ms:.4f} ms")
 
     # contacts and solver on the probe's Escape Room scene (phases 4, 5)
@@ -1890,6 +2068,7 @@ def main() -> int:
         scene["fused_args"][8])[2:]
     # the symbol of the kernel each wrapper launches, in cuobjdump's names
     symbols = {"hh_narrowphase.cu": "hh_record_kernel",
+               "lidar.cu": "lidar_kernel",
                "fused_step.cu": f"fused_kernelILi{f_threads}ELi{f_blocks}E"}
 
     def resources(src):
@@ -1940,10 +2119,17 @@ def main() -> int:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "registers": regs, "stack": stack,
         })
+        if name == "lidar":
+            rows[-1]["same_work_bound_ms"] = same_ms
         print(f"{name}: wrapper {ms[0]:.4f} ms/launch, device {ms[1]:.4f} "
               f"ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}: "
               f"{b} B, {ops} ops), {regs} registers, {stack} B stack "
               f"({card})")
+    # ---- 17: rollout through two episodes, its kernel launches counted
+    del largs, li_plain, depth
+    torch.cuda.empty_cache()
+    check_rollout(make_sim, rollout, EscapeRoom, kernels, card)
+
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

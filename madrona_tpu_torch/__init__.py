@@ -21,6 +21,8 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from .models.base import EnvBase, Sim, make_sim  # noqa: E402
+from .models.base import (  # noqa: E402
+    EnvBase, Sim, make_sim, rollout, rollout_flat,
+)
 
-__all__ = ["EnvBase", "Sim", "make_sim"]
+__all__ = ["EnvBase", "Sim", "make_sim", "rollout", "rollout_flat"]

@@ -96,3 +96,67 @@ class Sim:
         """Pure ``(state, inputs) -> (state, exports)`` over the graphs
         of ``launch`` (default: the env's ``default_launch``)."""
         return self.executor.step_fn(launch or self.env.default_launch)
+
+
+def _stacked_inputs(sim: Sim, actions_seq) -> int:
+    """T, the common leading length of ``actions_seq``'s tensors, each of
+    which must lie on ``sim.device``."""
+    if not actions_seq:
+        raise ValueError("actions_seq: no input slot")
+    lengths = set()
+    for slot, v in actions_seq.items():
+        if not torch.is_tensor(v):
+            raise TypeError(f"{slot}: expected a tensor on {sim.device}, "
+                            f"got {type(v).__name__}")
+        if v.device != sim.device:
+            raise ValueError(f"{slot}: on {v.device}, the sim is on "
+                             f"{sim.device}")
+        if v.dim() == 0:
+            raise ValueError(f"{slot}: no leading step axis")
+        lengths.add(v.shape[0])
+    if len(lengths) != 1:
+        raise ValueError(f"actions_seq: step counts differ {sorted(lengths)}")
+    return lengths.pop()
+
+
+def _run(sim: Sim, actions_seq, keep=None):
+    """Step ``sim`` through ``actions_seq`` on its device, each step's
+    exports (those named in ``keep``, if given) written into [T, ...]
+    tensors allocated there first; no host synchronisation."""
+    steps = _stacked_inputs(sim, actions_seq)
+    fn = sim.step_fn()
+    state = sim.state
+    exports = sim.executor.sm.collect_exports(state)
+    names = list(exports) if keep is None else [k for k in keep
+                                                if k in exports]
+    outs = {k: torch.empty((steps,) + tuple(exports[k].shape),
+                           dtype=exports[k].dtype, device=sim.device)
+            for k in names}
+    for t in range(steps):
+        state, step_out = fn(state, {k: v[t] for k, v in actions_seq.items()})
+        for k in names:
+            outs[k][t].copy_(step_out[k])
+    sim.state = state
+    return outs
+
+
+def rollout(sim: Sim, actions_seq, unroll: int = 1):
+    """Step a whole action sequence through the sim on its device.
+
+    actions_seq: dict slot -> [T, ...per-step shape], every tensor on
+    ``sim.device`` (another device raises). Returns every export stacked
+    [T, ...], allocated on the device before the loop; ``sim.state`` is
+    the final state. The loop makes no host synchronisation.
+    ``unroll`` is the JAX package's ``lax.scan`` argument, accepted for
+    the same call and without effect here."""
+    del unroll
+    return _run(sim, actions_seq)
+
+
+def rollout_flat(sim: Sim, actions_seq, unroll: int = 1):
+    """Like :func:`rollout` but keeps only the learner-facing slots
+    (``flat_obs``/``obs``, ``reward``, ``done``, where the env exports
+    them): the rollout-buffer shape PPO consumes, obs [T, W, A, D],
+    reward [T, W, ...], done [T, W]. ``unroll`` has no effect."""
+    del unroll
+    return _run(sim, actions_seq, keep=("flat_obs", "obs", "reward", "done"))

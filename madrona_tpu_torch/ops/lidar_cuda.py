@@ -13,14 +13,17 @@ import ctypes
 import torch
 
 from ..render.raycast import trace_rays_obb
-from .cuda_build import CudaKernel, check_tensor, stream_ptr
+from .cuda_build import CudaKernel, check_tensor, entry, stream_ptr
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-KERNEL = CudaKernel(
-    "lidar.cu", "lidar_launch",
-    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P],
-)
+_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float]
+KERNEL = CudaKernel("lidar.cu", "lidar_launch", _ARGS + [_P])
+# the same launch at a given tile (worlds a block), uncounted: the tests
+# and the sweep bind it from a build with cuda_build.entry or ctypes
+TILED_ARGTYPES = _ARGS + [_I, _P]
+TILING_FIELDS = ("tile", "threads", "blocks", "shared_bytes",
+                 "blocks_per_sm", "waves")
 
 
 def lidar_obb_plain(inst_pos, inst_rot, inst_half, self_mask, origins,
@@ -48,7 +51,23 @@ def lidar_obb(inst_pos, inst_rot, inst_half, self_mask, origins, dirs,
                    t_max)
 
 
-def _launch(inst_pos, inst_rot, inst_half, self_mask, origins, dirs, t_max):
+def tiling(w, n_inst, n_agents, n_rays):
+    """The default launch's {tile, threads, blocks, shared_bytes,
+    blocks_per_sm, waves} at W worlds, I boxes, A agents of R rays: the
+    tile (worlds a block) whose grid takes the fewest waves, then the
+    most threads an SM (the occupancy API on the current card)."""
+    out = (_I * len(TILING_FIELDS))()
+    fn = entry("lidar.cu", "lidar_tiling", [_I] * 4 + [ctypes.POINTER(_I)])
+    err = fn(w, n_inst, n_agents, n_rays, out)
+    if err:
+        raise RuntimeError(f"lidar_tiling: CUDA error {err}")
+    return dict(zip(TILING_FIELDS, out))
+
+
+def _launch(inst_pos, inst_rot, inst_half, self_mask, origins, dirs, t_max,
+            tiled=None):
+    """The launch. ``tiled``: (the ``lidar_launch_tiled`` entry, tile),
+    called in place of the counted kernel (the sweep and the tests)."""
     w, n_inst = inst_pos.shape[:2]
     n_agents, n_rays = dirs.shape[1], dirs.shape[2]
     f32 = torch.float32
@@ -60,10 +79,14 @@ def _launch(inst_pos, inst_rot, inst_half, self_mask, origins, dirs, t_max):
     check_tensor(dirs, "dirs", f32, (w, n_agents, n_rays, 3))
     depth = torch.empty((w, n_agents, n_rays), dtype=f32,
                         device=inst_pos.device)
-    KERNEL.launch(
-        inst_pos.data_ptr(), inst_rot.data_ptr(), inst_half.data_ptr(),
-        self_mask.data_ptr(), origins.data_ptr(), dirs.data_ptr(),
-        depth.data_ptr(), w, n_inst, n_agents, n_rays, float(t_max),
-        stream_ptr(),
-    )
+    args = (inst_pos.data_ptr(), inst_rot.data_ptr(), inst_half.data_ptr(),
+            self_mask.data_ptr(), origins.data_ptr(), dirs.data_ptr(),
+            depth.data_ptr(), w, n_inst, n_agents, n_rays, float(t_max))
+    if tiled is None:
+        KERNEL.launch(*args, stream_ptr())
+    else:
+        fn, tile = tiled
+        err = fn(*args, tile, stream_ptr())
+        if err:
+            raise RuntimeError(f"lidar_launch_tiled: CUDA error {err}")
     return depth

@@ -1,7 +1,8 @@
 """Import boundary of the PyTorch port.
 
-madrona_tpu_torch and chip_smoke.py run on machines without JAX: no
-module of theirs may import jax or anything of the JAX package
+madrona_tpu_torch, chip_smoke.py and the port's scripts
+(scripts/torch_*.py; chip_smoke.py loads two) run on machines without
+JAX: no module of theirs may import jax or anything of the JAX package
 (madrona_tpu), not even a numpy-only module; nor triton, which no kernel
 of the port uses and the CPU machines lack. Checked by parsing every
 source file, and by importing the package in a fresh interpreter."""
@@ -16,7 +17,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 SOURCES = sorted((ROOT / "madrona_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"
-]
+] + sorted((ROOT / "scripts").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "madrona_tpu", "triton")
 
 

@@ -19,9 +19,14 @@ before the substeps) are held against the plain version's like the
 contacts source's. The record and fused-step sources also run through
 their tiled entry points (hh_record_launch_tiled, fused_launch_tiled) at
 other tile widths with every hull-hull lane on a thread or on a warp:
-their outputs must equal the default launch's bit for bit.
+their outputs must equal the default launch's bit for bit. The lidar
+source runs at its default tile and through lidar_launch_tiled at
+others, on world counts that are no multiple of the tile and on boxes
+that take IEEE division's path, equal to its plain version bit for bit;
+its in-range division path is held against IEEE division.
 
-Tolerances: broadphase exact; lidar 1e-5; raycast 0 (every plane equal
+Tolerances: broadphase exact; lidar 1e-5 (the tiled cases: exact);
+raycast 0 (every plane equal
 bit for bit, for the four option sets); contacts ref/alt/num exact,
 reduced contacts 1e-4, manifold points 1e-3 unordered; hull-hull record
 the same, and the fused step's lanes too; solver and fused step poses 1e-3, velocities 5e-2, angular
@@ -30,6 +35,8 @@ velocities 2e-1 (tests/golden_inputs.py:484-492)."""
 import contextlib
 import ctypes
 import dataclasses
+import importlib.util
+import pathlib
 
 import numpy as np
 import pytest
@@ -147,6 +154,120 @@ def test_lidar_source_matches_plain(cpu_kernels):
     ref = lidar_cuda.lidar_obb_plain(*args)
     assert float((got - ref).abs().max()) <= 1e-5
     assert bool((got < args[-1]).any())
+
+
+def _lidar_scene(worlds, n_inst, n_agents, n_rays, seed, out_of_range):
+    """Random boxes around each agent's origin, unit ring directions with
+    a little pitch; agent a's own box (box a) sits on its origin and is
+    hidden from its rays by the self-mask, as are two other boxes.
+    out_of_range: operands outside the range of the kernel's branch-free
+    divisions (it takes IEEE division's checked path there): a thin plate
+    (half extent 0.002) in every world but world 0, where that box has a
+    half extent of 1e13, and one ray of an agent with a direction of
+    1e13; and an upright box (identity rotation) that every agent's first
+    ray meets with a z of 1e-25 (in range: a quotient below the guard)."""
+    rs = np.random.RandomState(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32))  # noqa
+    q = rs.randn(worlds, n_inst, 4)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    pos = rs.uniform(-6, 6, (worlds, n_inst, 3))
+    origins = rs.uniform(-4, 4, (worlds, n_agents, 3))
+    pos[:, :n_agents] = origins
+    mask = np.ones((n_agents, n_inst), bool)
+    mask[np.arange(n_agents), np.arange(n_agents)] = False
+    mask[0, n_agents] = mask[-1, n_inst - 1] = False
+    ang = rs.uniform(0, 2 * np.pi, (worlds, n_agents, n_rays))
+    dirs = np.stack([-np.sin(ang), np.cos(ang),
+                     0.1 * rs.randn(worlds, n_agents, n_rays)], -1)
+    half = rs.uniform(0.2, 2.5, (worlds, n_inst, 3))
+    if out_of_range:
+        half[1:, n_inst - 2, 2] = 0.002
+        half[0, n_inst - 2, 0] = 1e13
+        q[:, n_inst - 3] = (1.0, 0.0, 0.0, 0.0)
+        dirs[:, :, 0, 2] = 1e-25
+        dirs[:, 0, 1] *= 1e13
+    return (t(pos), t(q), t(half),
+            torch.from_numpy(mask), t(origins), t(dirs), 40.0)
+
+
+# (worlds, boxes, agents, rays an agent, tiles): the default launch and
+# each tile through lidar_launch_tiled. A world's rays take their own
+# warps (60 rays on 64 lanes: a partial last warp); 3 x 100 rays take
+# 256 lanes and a partial second round. World counts that are no
+# multiple of the tile leave the last block's tile partly empty.
+# out_of_range: operands for IEEE division's checked path (_lidar_scene).
+LIDAR_TILE_CASES = {
+    "escape_room_7": (7, 20, 2, 30, (1, 2, 3, 4)),
+    "rays_300": (5, 9, 3, 100, (1, 2, 3)),
+    "masked_13": (13, 6, 2, 30, (4, 5, 16)),
+    "out_of_range_5": (5, 8, 2, 30, (2, 3)),
+}
+
+
+@pytest.mark.parametrize("case", list(LIDAR_TILE_CASES))
+def test_lidar_source_tiles_equal_plain(cpu_kernels, case):
+    """The lidar source's depth equals the plain version's bit for bit at
+    its default tile and every tile given, on world counts that are no
+    multiple of the tile; the hidden boxes would have been hit."""
+    worlds, n_inst, n_agents, n_rays, tiles = LIDAR_TILE_CASES[case]
+    if case.startswith("escape_room"):
+        sim = make_sim(EscapeRoom(), num_worlds=worlds, seed=4, device="cpu")
+        sim.step({})                          # the first reset's level
+        args = tuple(a.contiguous() if torch.is_tensor(a) else a
+                     for a in sim.env.lidar_inputs(sim.state))
+        assert tuple(args[5].shape[:3]) == (worlds, n_agents, n_rays)
+    else:
+        args = _lidar_scene(worlds, n_inst, n_agents, n_rays, seed=worlds,
+                            out_of_range=case.startswith("out_of_range"))
+    ref = lidar_cuda.lidar_obb_plain(*args)
+    assert torch.equal(lidar_cuda._launch(*args), ref)
+    fn = _tiled_entry(cpu_kernels, "lidar", "lidar_launch_tiled",
+                      lidar_cuda.TILED_ARGTYPES)
+    for tile in tiles:
+        got = lidar_cuda._launch(*args, tiled=(fn, tile))
+        assert torch.equal(got, ref), tile
+    hits = ref < args[-1]
+    # the room's walls catch every ray; the random scenes let some miss
+    assert bool(hits.any())
+    assert case.startswith("escape_room") or not bool(hits.all())
+    # the mask changes the answer: without it some ray would stop earlier
+    unmasked = lidar_cuda.lidar_obb_plain(*args[:3], torch.ones_like(args[3]),
+                                          *args[4:])
+    assert bool((unmasked < ref).any())
+    if case.startswith("out_of_range"):
+        # the plates (IEEE division's path) are the nearest hit of some rays
+        no_plate = args[3].clone()
+        no_plate[:, n_inst - 2] = False
+        assert bool((lidar_cuda.lidar_obb_plain(*args[:3], no_plate,
+                                                *args[4:]) > ref).any())
+
+
+def test_lidar_divisions_in_range_equal_ieee(cpu_kernels):
+    """The lidar source's in-range division path gives IEEE's guarded
+    reciprocals, and its quotients wherever the guard accepts them, over
+    the kernel's range (here with an exact reciprocal estimate;
+    chip_smoke.py runs the card's), by scripts/torch_lidar_division.py's
+    check."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_lidar_division", pathlib.Path(__file__).resolve().parents[1]
+        / "scripts" / "torch_lidar_division.py")
+    division = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(division)
+    # the shim's CPU tensor check and null stream, as lidar_cuda has them
+    division.check_tensor = lidar_cuda.check_tensor
+    division.stream_ptr = lidar_cuda.stream_ptr
+    fn = _tiled_entry(cpu_kernels, "lidar", "lidar_division_check",
+                      division.ARGTYPES)
+    x, y = division.operands(np.random.RandomState(0), 4096, "cpu")
+    out = division.check(x, y, fn=fn)
+    assert division.mismatches(out) == (0, 0)
+    ieee = x / y
+    assert torch.equal(out[:, 2].view(torch.int32), ieee.view(torch.int32))
+    ref_inv = torch.where(ieee.abs() > 1e-12, 1.0 / ieee, 1e30)
+    assert torch.equal(out[:, 3].view(torch.int32), ref_inv.view(torch.int32))
+    accepted = ieee.abs() > 1e-12
+    assert 0.5 < float(accepted.float().mean()) < 1.0
+    assert bool((x == 0).any())
 
 
 RAYCAST_OPTIONS = {
