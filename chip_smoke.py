@@ -5,9 +5,7 @@
 
 Phases, each printing its own lines:
   1. the card (nvidia-smi name and power limit) and the kernel build
-     (one nvcc per csrc/*.cu source, all seven started together, and
-     one more for the lidar source that csrc/lidar.cu replaced, kept in
-     scripts/torch_lidar_compare.py);
+     (one nvcc per csrc/*.cu source, all seven started together);
   2. the broadphase kernel against its plain PyTorch version at 4096
      worlds, on random scenes (caps-saturating ones included, and one of
      64 bodies, MAX_BODIES) and on a real Escape Room body state: every
@@ -70,6 +68,21 @@ Phases, each printing its own lines:
      exports equal, float exports within SMALL_TOL, pixels differing by
      more than PIX_TOL at under PIX_FRAC of the pixels; and, with the
      raycast library and the compiler taken away, a render step raises;
+ 13a. the raycast kernel against its plain version on a real state of
+     Hide & Seek's BLAS render tier (HideSeek(render_size=64,
+     render_tier="blas"), 1024 worlds x 4 views x 64 x 64 rays, 3 steps
+     in): the material, light and shadow options on (one shadow-casting
+     sun, the checker-textured floor), all eight planes within RAY_TOL;
+ 13b. the BLAS tier at full width: make_sim(HideSeek(render_size=64,
+     render_tier="blas"), 1024 worlds) through ("step", "render"), 20
+     steps of seeded random actions: exports finite and of the expected
+     shapes, broadphase, contacts, solver and raycast launched once per
+     step each and the lidar not at all, a fresh sim bit-identical, ms
+     per node, env-steps/s; then the same with tlas_max_instances=8,
+     tlas_overlap exported (int32, in [0, 14]);
+ 13c. the BLAS tier at 8 worlds on the card against the port's CPU path
+     as phase 13 does; and, with the raycast library and the compiler
+     taken away, a BLAS-tier render step raises;
  14. the physics tiers of this slice at full width, 20 steps of seeded
      random actions each, every kernel's launches counted: Escape Room
      with megakernel_fused (B1, B8, B4 once per step; no B2, B3), Hide &
@@ -94,12 +107,14 @@ Phases, each printing its own lines:
      scene in both SAT tiers. After the build, each
      kernel's registers, stack frame and local memory (cuobjdump); the
      JSON line carries the registers and stack of the kernel each
-     wrapper launches. The lidar is also timed, in the same call, by the
-     source it replaced (one thread a ray; it must equal the plain
-     version too), with the bound of what the function needs (the row's
-     bound_ms) and the same-work yardstick of the replaced source
-     (LIDAR_OPS_PER_RAY_BOX every (ray, box); the row's
-     same_work_bound_ms);
+     wrapper launches. The lidar's bound is what the function needs (the
+     row's bound_ms); beside it the same-work yardstick of the source
+     csrc/lidar.cu replaced (LIDAR_OPS_PER_RAY_BOX every (ray, box); the
+     row's same_work_bound_ms; that source is timed by
+     scripts/torch_lidar_compare.py). The raycast kernel has a second
+     row, "raycast_blas": phase 13a's BLAS-tier planes, its launches from
+     phase 13b, its bound counting the shadow test and the atlas sample
+     on the live rows;
  17. rollout (models/base.py) of Escape Room at 4096 worlds for 400 steps
      of bench.py's actions (RandomState(0)), through the resets at steps
      200 and 400: broadphase, contacts, solver and lidar launched once a
@@ -1347,6 +1362,34 @@ def raycast_compare(name, planes, opts):
     return max(d), got
 
 
+def ray_ops(planes, opts, n_rays, out):
+    """The operations a raycast run needs on this run's data: the primary
+    test of every real ray against the live rows only (a row whose
+    columns 0..2, A, are all zero has det 0 for every ray and cannot
+    hit); the shadow test of every ray that hit against the live rows
+    whose shadow row is on (column 22, |det_s|, nonzero); per ray the
+    shading, and with materials the atlas sample of every ray that hit.
+    Returns (ops, live rows, (hit ray, shadow row) pairs, rays that hit)."""
+    from madrona_tpu_torch.ops import raycast_cuda as rck
+
+    setup = planes[0]
+    wv = setup.shape[0]
+    live = (setup[..., :3] != 0).any(dim=-1)                   # [WV, T]
+    live_rows = int(live.sum())
+    hits = (out[:, rck.O_T, :n_rays] < opts["t_max"]).sum(dim=1)  # [WV]
+    hit_rays = int(hits.sum())
+    shadow_pairs = 0
+    if opts["shadows"]:
+        shadow_rows = (live & (setup[..., 22] != 0)).sum(dim=1)
+        shadow_pairs = int((hits * shadow_rows).sum())
+    ops = (n_rays * live_rows * RAY_OPS_PAIR
+           + shadow_pairs * RAY_OPS_PAIR_SHADOW
+           + wv * n_rays * RAY_OPS_RAY
+           + (hit_rays * RAY_OPS_RAY_MATERIALS if opts["use_materials"]
+              else 0))
+    return ops, live_rows, shadow_pairs, hit_rays
+
+
 def synthetic_ray_planes(rs, wv, t_pad, r_pad, tex, device):
     """Random raycast inputs (setup, attrs, dl, atlas) on ``device`` with
     exact ties, disabled shadow rows and dead rows; the CPU tests make
@@ -1404,6 +1447,43 @@ def check_raycast(sim):
                  tex_size=tex)
         worst = max(worst, raycast_compare(f"synthetic {name}", syn, o)[0])
     return worst, (planes, opts, n_rays)
+
+
+def check_raycast_blas(sim):
+    """Phase 13a: the raycast kernel on the BLAS tier's own planes.
+    Returns (largest difference, (planes, options, live ray count))."""
+    from madrona_tpu_torch.ops import raycast_cuda as rck
+    from madrona_tpu_torch.render import kernel as rkernel
+
+    env = sim.env
+    planes, opts, n_rays = rkernel.kernel_inputs(
+        env.rcfg, *env.rsys.render_inputs(sim.state))
+    if not (opts["shadows"] and opts["use_lights"] and opts["use_materials"]):
+        raise AssertionError(f"the BLAS tier runs every option: {opts}")
+    if planes[0].shape[0] != HS_W * 4 or n_rays != HS_RENDER ** 2:
+        raise AssertionError(f"raycast shapes {planes[0].shape}, {n_rays}")
+    worst, out = raycast_compare("hide_seek blas", planes, opts)
+    occ = float(out[:, rck.O_OCC, :n_rays].mean())
+    textured = float((planes[1][:, rck.A_TEX] >= 0).float().mean())
+    print(f"raycast blas scene: {planes[3].shape[1] // env.rsys.materials.tex_size}"
+          f" atlas layer(s) of {env.rsys.materials.tex_size}^2, share of "
+          f"textured rows {textured:.3f}, occluded share {occ:.3f}")
+    if not (0.0 < occ < 1.0 and textured > 0.0):
+        raise AssertionError("raycast blas: no shadow or no texture in view")
+    return worst, (planes, opts, n_rays)
+
+
+def check_pixels(out, what):
+    """rgb within [0, 1], depth within (0, t_max], most rays hit."""
+    rgb, depth = out["rgb"], out["depth"]
+    hit = float((depth < 80.0).float().mean())
+    print(f"{what}: rgb in [{float(rgb.min()):.3f}, {float(rgb.max()):.3f}], "
+          f"depth in [{float(depth.min()):.3f}, {float(depth.max()):.3f}], "
+          f"share of rays that hit {hit:.3f}")
+    if not (float(rgb.min()) >= 0.0 and float(rgb.max()) <= 1.0
+            and float(depth.min()) > 0.0 and float(depth.max()) <= 80.0
+            and 0.5 < hit < 1.0):
+        raise AssertionError(f"{what}: rgb or depth out of range")
 
 
 def check_exports(outs, shapes, what):
@@ -1585,14 +1665,15 @@ def step_ms(make_sim, make_env, acts):
     return (time.perf_counter() - t0) * 1e3 / (STEPS - 1)
 
 
-def check_hide_seek_small(make_sim, HideSeek):
-    """Phase 13: 8 worlds on the card against the port's CPU path."""
+def check_hide_seek_small(make_sim, make_env, what="hide_seek"):
+    """Phases 13 and 13c: ``make_env()`` (Hide & Seek with pixels) at 8
+    worlds on the card against the port's CPU path."""
     import torch
 
-    acts = HideSeek.random_actions(np.random.RandomState(5), SMALL_STEPS,
-                                   SMALL_W)
-    sims = {d: make_sim(HideSeek(render_size=16), num_worlds=SMALL_W, seed=3,
-                        device=d) for d in ("cpu", DEV)}
+    acts = make_env().random_actions(np.random.RandomState(5), SMALL_STEPS,
+                                     SMALL_W)
+    sims = {d: make_sim(make_env(), num_worlds=SMALL_W, seed=3, device=d)
+            for d in ("cpu", DEV)}
     worst, worst_frac = 0.0, 0.0
     for i in range(SMALL_STEPS):
         o = {d: s.step({"action": acts[i].to(d),
@@ -1607,14 +1688,14 @@ def check_hide_seek_small(make_sim, HideSeek):
             elif g.is_floating_point():
                 worst = max(worst, float((g - c).abs().max()))
             elif not torch.equal(g, c):
-                raise AssertionError(f"hide_seek small step {i}: {name} "
+                raise AssertionError(f"{what} small step {i}: {name} "
                                      "differs")
     if not worst <= SMALL_TOL:
-        raise AssertionError(f"hide_seek card vs CPU: {worst} > {SMALL_TOL}")
+        raise AssertionError(f"{what} card vs CPU: {worst} > {SMALL_TOL}")
     if not worst_frac <= PIX_FRAC:
-        raise AssertionError(f"hide_seek card vs CPU: pixel share "
+        raise AssertionError(f"{what} card vs CPU: pixel share "
                              f"{worst_frac} > {PIX_FRAC}")
-    print(f"hide_seek card vs CPU path: {SMALL_W} worlds x {SMALL_STEPS} "
+    print(f"{what} card vs CPU path: {SMALL_W} worlds x {SMALL_STEPS} "
           f"steps, int exports equal, float max_abs_diff={worst!r}, share "
           f"of pixels off by more than {PIX_TOL}: {worst_frac!r}")
     return sims[DEV]
@@ -1641,17 +1722,11 @@ def main() -> int:
     print(card)
     kind = torch.cuda.get_device_name(0)
 
-    # ---- 1. build (with the lidar source that lidar.cu replaced, kept in
-    # scripts/torch_lidar_compare.py, for phase 16's comparison)
-    lidar_compare = load_script("torch_lidar_compare")
+    # ---- 1. build
     t0 = time.perf_counter()
-    old_lidar_build = lidar_compare.start_build()
     libs = cuda_build.build(cuda_build.SOURCES)
-    old_lidar, old_lidar_report = lidar_compare.load(old_lidar_build)
     print(f"build: {time.perf_counter() - t0:.1f} s -> "
           + ", ".join(p.name for p in libs.values()))
-    for line in old_lidar_report.splitlines():
-        print(f"  lidar.cu before its redesign: {line}")
     for src, log in cuda_build.BUILD_LOG.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -1758,16 +1833,8 @@ def main() -> int:
             "rgb": (HS_W, 4, HS_RENDER, HS_RENDER, 3),
             "depth": (HS_W, 4, HS_RENDER, HS_RENDER),
             "flat_obs": (HS_W, 4, 46), "visible": (HS_W, 2, 2)}, card)
-    rgb, depth = hs_outs[-1]["rgb"], hs_outs[-1]["depth"]
-    hit = float((depth < 80.0).float().mean())
-    print(f"hide_seek pixels: rgb in [{float(rgb.min()):.3f}, "
-          f"{float(rgb.max()):.3f}], depth in [{float(depth.min()):.3f}, "
-          f"{float(depth.max()):.3f}], share of rays that hit {hit:.3f}")
-    if not (float(rgb.min()) >= 0.0 and float(rgb.max()) <= 1.0
-            and float(depth.min()) > 0.0 and float(depth.max()) <= 80.0
-            and 0.5 < hit < 1.0):
-        raise AssertionError("hide_seek pixels: rgb or depth out of range")
-    del hs_outs, rgb, depth
+    check_pixels(hs_outs[-1], "hide_seek pixels")
+    del hs_outs
     hs_shapes = {"flat_obs": (HS_STATE_W, 4, 46),
                  "self_obs": (HS_STATE_W, 4, 10),
                  "visible": (HS_STATE_W, 2, 2)}
@@ -1775,10 +1842,57 @@ def main() -> int:
                [STEPS] * 3 + [0, 0], "hide_seek state only", hs_shapes, card)
 
     # ---- 13: Hide & Seek, the card against the CPU path; no fallback
-    small_hs = check_hide_seek_small(make_sim, HideSeek)
+    small_hs = check_hide_seek_small(make_sim,
+                                     lambda: HideSeek(render_size=16))
     check_no_fallback(small_hs, [raycast_cuda.KERNEL], launch=("render",))
     check_no_fallback(small_hs, hs_kernels[:3], launch=("step",))
     del small_hs
+    torch.cuda.empty_cache()
+
+    # ---- 13a: the raycast kernel against its plain version on a real
+    # state of the BLAS render tier (a probe sim, 3 steps in)
+    def blas_pixels(**kw):
+        return HideSeek(render_size=HS_RENDER, render_tier="blas", **kw)
+
+    blas_probe = make_sim(blas_pixels(), num_worlds=HS_W, seed=1, device=DEV)
+    for i in range(3):
+        blas_probe.step({"action": hs_acts[i].to(DEV),
+                         "reset": torch.zeros((HS_W,), dtype=torch.int32,
+                                              device=DEV)})
+    rb_err, blas_ray_scene = check_raycast_blas(blas_probe)
+    del blas_probe
+
+    # ---- 13b: the BLAS tier at full width, then with the per-view cull's
+    # overlap export, their kernel launches counted
+    blas_shapes = {"rgb": (HS_W, 4, HS_RENDER, HS_RENDER, 3),
+                   "depth": (HS_W, 4, HS_RENDER, HS_RENDER),
+                   "flat_obs": (HS_W, 4, 46), "visible": (HS_W, 2, 2)}
+    _, b_outs, _, _, blas_launches = check_path(
+        make_sim, blas_pixels, HS_W, hs_kernels, [STEPS] * 4 + [0],
+        "hide_seek blas", blas_shapes, card)
+    check_pixels(b_outs[-1], "hide_seek blas")
+    del b_outs
+    _, c_outs, _, _, _ = check_path(
+        make_sim, lambda: blas_pixels(tlas_max_instances=8), HS_W,
+        hs_kernels, [STEPS] * 4 + [0], "hide_seek blas tlas_max_instances=8",
+        {**blas_shapes, "tlas_overlap": (HS_W, 4)}, card)
+    ov = torch.stack([o["tlas_overlap"] for o in c_outs])
+    print(f"hide_seek blas tlas_max_instances=8: tlas_overlap {ov.dtype}, "
+          f"in [{int(ov.min())}, {int(ov.max())}], mean {float(ov.float().mean()):.3f}, "
+          f"share of (world, view, step)s over K=8 "
+          f"{float((ov > 8).float().mean()):.4f}")
+    if ov.dtype != torch.int32 or int(ov.min()) < 0 or int(ov.max()) > 14:
+        raise AssertionError("tlas_overlap out of range")
+    check_pixels(c_outs[-1], "hide_seek blas tlas_max_instances=8")
+    del c_outs, ov
+
+    # ---- 13c: the BLAS tier, the card against the CPU path; no fallback
+    small_blas = check_hide_seek_small(
+        make_sim, lambda: HideSeek(render_size=16, render_tier="blas"),
+        "hide_seek blas")
+    check_no_fallback(small_blas, [raycast_cuda.KERNEL], launch=("render",),
+                      label="hide_seek blas ('render',)")
+    del small_blas
     torch.cuda.empty_cache()
 
     # ---- 14: the physics tiers of this slice at full width: each path's
@@ -1852,13 +1966,9 @@ def main() -> int:
     depth = lidar_cuda.lidar_obb(*largs)
     li_bytes = nbytes(*largs[:6], depth)
     li_ms = kernel_ms(lambda: lidar_cuda.lidar_obb(*largs))
-    li_plain = plain_lidar(largs)
     li_plain_ms = timed(lambda: plain_lidar(largs), 50)
-    # the same work by the lidar.cu this one replaced (one thread a ray),
-    # in this call; the bound of what the function needs (the row's) and
-    # the same-work yardstick of the replaced source
-    old_err, old_ms, new_ms = lidar_compare.compare(old_lidar, largs,
-                                                    li_plain, timed_device)
+    # the bound of what the function needs (the row's) and the same-work
+    # yardstick of the source lidar.cu replaced
     n_agents, n_inst = largs[3].shape
     visible = int(largs[3].sum(dim=1).repeat_interleave(
         largs[5].shape[2]).sum()) * W
@@ -1869,15 +1979,10 @@ def main() -> int:
     li_bound_ms, li_bound_by = bound(li_bytes, li_ops)
     same_ms, _ = bound(li_bytes, same_ops)
     print(f"lidar at the escape_room shape (W={W}, I={n_inst}, A="
-          f"{n_agents}, R={largs[5].shape[2]}), device ms in this call: "
-          f"tiles of worlds (csrc/lidar.cu) {new_ms:.4f}, one thread a ray "
-          f"(before its redesign) {old_ms:.4f} (max_abs_diff {old_err!r}); "
-          f"bound of what the function needs {li_bound_ms:.5f} ms "
-          f"({li_bound_by}: {li_ops} ops, {visible} visible (ray, box)), "
-          f"same-work yardstick of the replaced source {same_ms:.5f} ms "
-          f"({same_ops} ops) ({card})")
-    if not old_err <= LIDAR_TOL:
-        raise AssertionError(f"lidar before its redesign: {old_err}")
+          f"{n_agents}, R={largs[5].shape[2]}): bound of what the function "
+          f"needs {li_bound_ms:.5f} ms ({li_bound_by}: {li_ops} ops, "
+          f"{visible} visible (ray, box)), same-work yardstick of the "
+          f"replaced source {same_ms:.5f} ms ({same_ops} ops) ({card})")
     print(f"broadphase route (pack + kernel): {bp_route_ms:.4f} ms")
 
     # contacts and solver on the probe's Escape Room scene (phases 4, 5)
@@ -1982,33 +2087,38 @@ def main() -> int:
               f"{k_ms[1]:.4f} ms, plain {pl_ms:.4f} ms, bound {b_ms:.5f} ms "
               f"({b_by}: {b} B, {ops} ops) ({card})")
 
-    # raycast at the pixel path's shapes (phase 10's real scene)
-    r_planes, r_opts, n_rays = ray_scene
-    r_out = raycast_cuda.raytrace(*r_planes, **r_opts)
-    ra_bytes = nbytes(*r_planes, r_out)
-    wv, t_pad = r_planes[0].shape[:2]
-    # what this run's data needs: the real rays, and for the primary test
-    # only the live rows (a row whose columns 0..2, A, are all zero has
-    # det 0 for every ray and cannot hit)
-    live_rows = int((r_planes[0][..., :3] != 0).any(dim=-1).sum())
-    per_ray = RAY_OPS_RAY + (RAY_OPS_RAY_MATERIALS if r_opts["use_materials"]
-                             else 0)
-    shadow = RAY_OPS_PAIR_SHADOW if r_opts["shadows"] else 0
-    ra_ops = n_rays * (live_rows * RAY_OPS_PAIR + wv * t_pad * shadow
-                       + wv * per_ray)
-    # every (view, padded ray, row): the yardstick of the kernel before it
-    # skipped dead rows, the same work before and after
-    r_pad = r_out.shape[2]
-    all_ops = r_pad * wv * (t_pad * (RAY_OPS_PAIR + shadow) + per_ray)
-    all_ms, all_by = bound(ra_bytes, all_ops)
-    print(f"raycast: {live_rows} of {wv * t_pad} rows live; bound over "
-          f"every row (the same-work yardstick of the kernel that tested "
-          f"them all) {all_ms:.5f} ms ({all_by}: {all_ops} ops) ({card})")
-    del r_out
-    ra_ms = kernel_ms(lambda: raycast_cuda.raytrace(*r_planes, **r_opts),
-                      20, 2)
-    ra_plain_ms = timed(
-        lambda: raycast_cuda.raytrace_plain(*r_planes, **r_opts), 2, 1)
+    # raycast at the pixel paths' shapes: phase 10's dense scene and
+    # phase 13a's BLAS-tier scene
+    ray_rows = {}
+    for name, (r_planes, r_opts, n_rays) in (("raycast", ray_scene),
+                                             ("raycast_blas", blas_ray_scene)):
+        r_out = raycast_cuda.raytrace(*r_planes, **r_opts)
+        r_bytes = nbytes(*r_planes, r_out)
+        r_ops, live_rows, shadow_pairs, hit_rays = ray_ops(
+            r_planes, r_opts, n_rays, r_out)
+        wv, t_pad = r_planes[0].shape[:2]
+        print(f"{name}: {live_rows} of {wv * t_pad} rows live, {hit_rays} "
+              f"of {wv * n_rays} rays hit, {shadow_pairs} (hit ray, "
+              f"shadow row) pairs, options {r_opts}")
+        if name == "raycast":
+            # every (view, padded ray, row): the yardstick of the kernel
+            # before it skipped dead rows, the same work before and after
+            per_ray = RAY_OPS_RAY + (RAY_OPS_RAY_MATERIALS
+                                     if r_opts["use_materials"] else 0)
+            shadow = RAY_OPS_PAIR_SHADOW if r_opts["shadows"] else 0
+            all_ops = r_out.shape[2] * wv * (
+                t_pad * (RAY_OPS_PAIR + shadow) + per_ray)
+            all_ms, all_by = bound(r_bytes, all_ops)
+            print(f"raycast: bound over every row (the same-work yardstick "
+                  f"of the kernel that tested them all) {all_ms:.5f} ms "
+                  f"({all_by}: {all_ops} ops) ({card})")
+        del r_out
+        ray_rows[name] = (
+            kernel_ms(lambda: raycast_cuda.raytrace(*r_planes, **r_opts),
+                      20, 2),
+            timed(lambda: raycast_cuda.raytrace_plain(*r_planes, **r_opts),
+                  2, 1),
+            r_bytes, r_ops)
 
     # B1-B3 and B8 at Hide & Seek's shapes (phase 11's arranged scene,
     # 16,384 worlds), with bounds by the Escape Room rows' counts, beside
@@ -2099,7 +2209,11 @@ def main() -> int:
         ("raycast", "madrona_tpu_torch/csrc/raycast.cu",
          "madrona_tpu/ops/raycast_pallas.py:150",
          hs_launches[hs_kernels.index(raycast_cuda.KERNEL)],
-         ra_err, ra_ms, ra_plain_ms, ra_bytes, ra_ops),
+         ra_err, *ray_rows["raycast"]),
+        ("raycast_blas", "madrona_tpu_torch/csrc/raycast.cu",
+         "madrona_tpu/ops/raycast_pallas.py:150",
+         blas_launches[hs_kernels.index(raycast_cuda.KERNEL)],
+         rb_err, *ray_rows["raycast_blas"]),
         ("hh_narrowphase_sublane", "madrona_tpu_torch/csrc/hh_narrowphase.cu",
          "madrona_tpu/ops/narrowphase_pallas.py:1227", sub[i_hh], hh_err,
          *hh_rows["edge_dirs"]),
@@ -2126,7 +2240,7 @@ def main() -> int:
               f"{b} B, {ops} ops), {regs} registers, {stack} B stack "
               f"({card})")
     # ---- 17: rollout through two episodes, its kernel launches counted
-    del largs, li_plain, depth
+    del largs, depth
     torch.cuda.empty_cache()
     check_rollout(make_sim, rollout, EscapeRoom, kernels, card)
 

@@ -1,4 +1,4 @@
-"""State carried across frameworks: SimState <-> a tree of numpy arrays.
+"""State and render tables carried across frameworks, through numpy.
 
 The numpy tree is the JAX package's ``SimState`` flattened field by
 field: ``{"tables": {arch: {"columns": {comp: array or {field: array}},
@@ -11,6 +11,12 @@ from the same state at any step.
 Threefry words: the port stores ``rng`` as int64 holding 32-bit values
 (torch's uint32 lacks the needed arithmetic); the conversion maps
 uint32 <-> int64 exactly. Every other array keeps its dtype.
+
+The render tables cross the same way: :func:`blas_from_numpy`,
+:func:`materials_from_numpy` and :func:`lights_from_numpy` take the
+fields of the JAX package's ``BlasTables``, ``MaterialTables`` and
+``Lights`` as a mapping of numpy arrays (by field name) and give the
+port's tables on a named device.
 """
 
 from __future__ import annotations
@@ -70,3 +76,45 @@ def state_to_numpy(state: SimState):
         "rng": state.rng.cpu().numpy().astype(np.uint32),
         "step": np.asarray(int(state.step), np.int32),
     }
+
+
+def _table(cls, tree, device, ints=()):
+    """``cls`` from the mapping ``tree`` of its fields: arrays as tensors
+    on ``device``, the names in ``ints`` as Python ints. A field the port
+    does not have must be None."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    extra = [k for k, v in tree.items() if k not in names and not (
+        np.ndim(v) == 0 and np.asarray(v, object).item() is None)]
+    if extra:
+        raise ValueError(f"{cls.__name__}: fields the port has no place for: "
+                         f"{sorted(extra)}")
+    return cls(**{
+        k: int(np.asarray(tree[k])) if k in ints else _to_torch(tree[k], device)
+        for k in names if k in tree
+    })
+
+
+def blas_from_numpy(tree, device):
+    """The port's ``render.blas.BlasTables`` from numpy fields (node_min,
+    node_max, left, right, tri_v0, tri_e1, tri_e2, tri_color, tri_uv,
+    tri_mat, max_leaf, num_objects; the JAX package's ``wide`` must be
+    None: the 4-wide collapse is not ported)."""
+    from .render.blas import BlasTables
+
+    return _table(BlasTables, tree, device, ints=("max_leaf", "num_objects"))
+
+
+def materials_from_numpy(tree, device):
+    """The port's ``render.materials.MaterialTables`` from numpy fields
+    (base_color, rough_metal, tex_id, atlas)."""
+    from .render.materials import MaterialTables
+
+    return _table(MaterialTables, tree, device)
+
+
+def lights_from_numpy(tree, device):
+    """The port's ``render.lights.Lights`` from numpy fields (direction,
+    position, is_spot, cutoff, cast_shadow, active, intensity)."""
+    from .render.lights import Lights
+
+    return _table(Lights, tree, device)

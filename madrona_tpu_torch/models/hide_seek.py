@@ -17,9 +17,13 @@ The physics configuration is the one the JAX env runs on an
 accelerator, under the port's tier names (see ``models/escape_room``):
 contacts and substep-solver kernels, the broadphase kernel, contacts
 once per step, one Jacobi pass, candidate caps 7 hull-hull / 9
-hull-plane / 0 sphere. The render tier is the dense one, which goes
-through the raycast kernel (``ops/raycast_cuda``); ``render_tier="blas"``
-and ``tlas_max_instances`` > 0 are not ported yet.
+hull-plane / 0 sphere. Both render tiers go through the raycast kernel
+(``ops/raycast_cuda``) at every size the env offers: the dense one with
+flat colours, and ``render_tier="blas"`` (the same meshes baked into
+mesh BVHs) with per-object materials, a checker-textured floor and one
+shadow-casting sun. ``tlas_max_instances`` > 0 adds the per-view cull's
+overlap export (``tlas_overlap``). The env's tables are built on the
+host and follow the sim's device (``make_sim``'s default: the card).
 
 Actions per agent: (move_amount 0-3, move_angle 0-7, rotate 0-4,
 grab 0-1, lock 0-1). Agents 0..NH-1 are hiders, the rest seekers.
@@ -127,8 +131,9 @@ def _make_objects():
 
 
 def _make_meshes():
-    """Hide & Seek's render objects; the material slots 1..6 are kept for
-    the BLAS tier's material table."""
+    """Hide & Seek's render objects; the material slots 1..6 line up with
+    ``_make_materials`` (the floor takes the checker texture). Both
+    render tiers bake from this registry."""
     reg = MeshRegistry()
     ids = {}
     ids["plane"] = reg.add_quad(
@@ -152,6 +157,34 @@ def _make_meshes():
     return reg, ids
 
 
+def _make_materials(tex_size: int = 32, device=None):
+    """Per-object materials and a checkerboard floor texture for the BLAS
+    render tier (the reference's per-leaf material path), on ``device``
+    (default: the card)."""
+    from ..assets.importer import ImportedMaterial, ImportedTexture
+    from ..render.materials import bake_materials
+
+    n = tex_size
+    yy, xx = np.mgrid[0:n, 0:n]
+    check = (((yy // (n // 4)) + (xx // (n // 4))) % 2).astype(np.uint8)
+    img = np.empty((n, n, 4), np.uint8)
+    img[..., :3] = np.where(check[..., None] > 0, 200, 90)
+    img[..., 3] = 255
+    mats = [
+        ImportedMaterial("floor", (1.0, 1.0, 1.0, 1.0),
+                         roughness=0.9, texture=0),
+        ImportedMaterial("wall", (0.6, 0.6, 0.2, 1.0), roughness=0.8),
+        ImportedMaterial("box", (0.55, 0.3, 0.1, 1.0), roughness=0.7),
+        ImportedMaterial("ramp", (0.7, 0.55, 0.2, 1.0), roughness=0.7),
+        ImportedMaterial("hider", (0.1, 0.4, 0.9, 1.0), roughness=0.4),
+        ImportedMaterial("seeker", (0.9, 0.15, 0.1, 1.0), roughness=0.4),
+    ]
+    return bake_materials(
+        mats, [ImportedTexture("checker", img)], tex_size=tex_size,
+        device=device,
+    )
+
+
 class HideSeek(EnvBase):
     name = "hide_seek"
     num_agents = N_AGENTS
@@ -164,11 +197,7 @@ class HideSeek(EnvBase):
                  render_tier: str = "dense"):
         if render_tier not in ("dense", "blas"):
             raise ValueError(f"unknown render_tier {render_tier!r}")
-        if render_tier == "blas":
-            raise NotImplementedError(
-                "render_tier='blas' (mesh BVH, materials, lights) is not "
-                "ported yet; use render_tier='dense'"
-            )
+        self.render_tier = render_tier
         self.om, self.obj = _make_objects()
         mesh_reg, self.mobj = _make_meshes()
         self.mesh = mesh_reg.build()
@@ -193,7 +222,8 @@ class HideSeek(EnvBase):
         self.caps = bp.CandidateCaps(hull_hull=7, hull_plane=9, sphere_any=0)
         self.rcfg = RenderConfig(
             width=render_size, height=render_size, fov_deg=90.0,
-            t_max=4 * ARENA, dtype="bfloat16", shadows=False,
+            t_max=4 * ARENA, dtype="bfloat16",
+            shadows=(render_tier == "blas"),
         )
         render_obj = (
             [self.mobj["plane"]] + [self.mobj["wall"]] * 4
@@ -201,15 +231,40 @@ class HideSeek(EnvBase):
             + [self.mobj["hider"]] * N_HIDERS
             + [self.mobj["seeker"]] * N_SEEKERS
         )
+        blas = materials = None
+        if render_tier == "blas" and pixels:
+            # per-object materials, the checker floor and a shadow-casting
+            # sun through the mesh-BVH tier; host tables, moved to the
+            # sim's device by the render node
+            blas = mesh_reg.build_blas(device="cpu")
+            materials = _make_materials(device="cpu")
+            self._light_specs = [
+                {"direction": (0.3, -0.4, -1.0), "cast_shadow": True},
+            ]
         self.rsys = RenderingSystem(
             self.mesh, self.rcfg, RIGID_BODY, render_obj,
             camera_rows=list(range(ROW_AGENT0, ROW_AGENT0 + N_AGENTS)),
             camera_offset=(0.0, 0.3, 0.6),
+            # > 0: the per-view top-K cull and its overlap export
             tlas_max_instances=tlas_max_instances,
+            blas=blas, materials=materials,
+            lights_fn=self._lights_for if blas is not None else None,
         )
+        self._lights_cache = {}
         # the line-of-sight query is float32 whatever the render type
         self.los_cfg = dataclasses.replace(self.rcfg, dtype="float32")
         self._consts = {}
+
+    def _lights_for(self, state):
+        """The [W, L] light table at the state's world count and device
+        (built once for each: the table is static)."""
+        from ..render.lights import make_lights
+
+        key = (state.rng.shape[0], state.rng.device)
+        if key not in self._lights_cache:
+            self._lights_cache[key] = make_lights(key[0], self._light_specs,
+                                                  device=key[1])
+        return self._lights_cache[key]
 
     @staticmethod
     def random_actions(rs, steps, num_worlds):

@@ -1,15 +1,33 @@
 """Batch renderer: mesh tables, raycaster, render-ECS glue.
 
 Port of ``madrona_tpu/render``: the dense tier and the raycast kernel
-tier. The cull tier (``tlas``), the mesh-BVH tier (``blas``), materials
-and lights are not ported yet.
+tier, the per-view cull (``tlas``), the mesh-BVH tier (``blas``), and
+the material and light tables. The JAX package's one-hot and 4-wide BVH
+walkers and ``bake_assets_blas`` (which needs the asset importers) are
+not ported.
 """
 
 from .mesh import MAX_TRIS, MeshRegistry, MeshTables
 from .raycast import RenderConfig, camera_rays, render_views
 from .ecs import RenderingSystem
+from .tlas import (
+    TLAS, build_tlas, tlas_candidates, render_views_tlas,
+    instance_world_aabbs, object_aabbs,
+)
+from .blas import (
+    BlasTables, bake_blas, render_views_blas, trace_rays_blas,
+    trace_scene_blas,
+)
+from .materials import MaterialTables, bake_materials, sample_materials
+from .lights import Lights, make_lights
 
 __all__ = [
+    "Lights", "make_lights",
     "MeshRegistry", "MeshTables", "MAX_TRIS",
     "RenderConfig", "render_views", "camera_rays", "RenderingSystem",
+    "TLAS", "build_tlas", "tlas_candidates", "render_views_tlas",
+    "instance_world_aabbs", "object_aabbs",
+    "BlasTables", "bake_blas", "render_views_blas",
+    "trace_rays_blas", "trace_scene_blas",
+    "MaterialTables", "bake_materials", "sample_materials",
 ]

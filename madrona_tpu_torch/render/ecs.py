@@ -1,11 +1,23 @@
 """RenderingSystem: ECS glue that mirrors sim state into render inputs.
 
-Port of ``madrona_tpu/render/ecs.py`` on its dense branch. Instances are
-views of the RigidBody table columns, cameras are derived from agent
-body rows each step, and the render node writes the RGBD outputs into
-exported singletons. The per-view cull tier (``tlas_max_instances`` > 0,
-``maybe_grow_tlas``) and the mesh-BVH tier (``blas``, with materials and
-lights) are not ported yet and raise ``NotImplementedError``.
+Port of ``madrona_tpu/render/ecs.py``. Instances are views of the
+RigidBody table columns, cameras are derived from agent body rows each
+step, and the render node writes the RGBD outputs into exported
+singletons. Its tiers, as in the JAX package:
+
+* dense (default): ``render/raycast.py::render_views``, through the
+  raycast kernel where the scene fits its budget;
+* the per-view cull (``tlas_max_instances`` > 0):
+  ``render/tlas.py::render_views_tlas``, with the per-view overlap count
+  exported as ``tlas_overlap`` (the ``TlasOverlap`` singleton) and
+  :meth:`RenderingSystem.maybe_grow_tlas` to raise K;
+* the mesh-BVH tier (``blas``, with ``materials`` and ``lights`` or
+  ``lights_fn``): ``render/blas.py::render_views_blas``, the cull too
+  where ``tlas_max_instances`` > 0.
+
+The tables may lie on any device; the node moves them to the state's
+device once and keeps them there. The JAX package's
+``MADRONA_TPU_BLAS_WIDE`` knob (its 4-wide walker) is not ported.
 
 Usage: ``RenderingSystem.register_types`` and ``setup_tasks`` on a
 builder (Hide & Seek gives the renderer a graph of its own).
@@ -26,6 +38,10 @@ from .mesh import MeshTables
 from .raycast import RenderConfig, render_views
 
 
+def _to(x, device):
+    return None if x is None else x.to(device)
+
+
 class RenderingSystem:
     """Per-env renderer wiring."""
 
@@ -39,18 +55,18 @@ class RenderingSystem:
         camera_offset=(0.0, 0.0, 0.0),
         exclude_self: bool = True,   # each view drops its own body row
         body_mask=None,              # [N] bool: rows that render
-        tlas_max_instances: int = 0,
-        blas=None, materials=None, lights=None, lights_fn=None,
+        tlas_max_instances: int = 0,  # >0: per-view top-K cull tier
+        blas=None,                    # BlasTables: the mesh-BVH tier
+        materials=None,               # MaterialTables for the BLAS tier
+        lights=None,                  # lights.Lights [W, L] (static)
+        lights_fn=None,               # or fn(state) -> Lights (dynamic)
     ):
-        if tlas_max_instances > 0:
-            raise NotImplementedError(
-                "the per-view cull tier (render/tlas) is not ported yet"
-            )
-        if blas is not None:
-            raise NotImplementedError(
-                "the mesh-BVH render tier (render/blas) is not ported yet"
-            )
         self.mesh = mesh
+        self.blas = blas
+        self.materials = materials
+        self.lights = lights
+        self.lights_fn = lights_fn
+        self.tlas_max_instances = tlas_max_instances
         self.cfg = cfg
         self.body_arch = body_arch
         self.camera_rows = tuple(camera_rows)
@@ -66,7 +82,8 @@ class RenderingSystem:
                    == torch.tensor(self.camera_rows)[:, None])
             view_mask = view_mask & ~own
         self._host = dict(
-            mesh=mesh, render_obj=render_obj, view_mask=view_mask,
+            mesh=mesh, blas=blas, materials=materials, lights=lights,
+            render_obj=render_obj, view_mask=view_mask,
             camera_offset=torch.tensor(camera_offset, dtype=torch.float32),
             cam_rows=torch.tensor(self.camera_rows, dtype=torch.long),
         )
@@ -75,7 +92,7 @@ class RenderingSystem:
     def _const(self, device):
         """The mesh tables and index tensors on ``device``."""
         if device not in self._on:
-            self._on[device] = {k: v.to(device)
+            self._on[device] = {k: _to(v, device)
                                 for k, v in self._host.items()}
         return self._on[device]
 
@@ -86,6 +103,11 @@ class RenderingSystem:
         reg.register_singleton("DepthOut", (v, h, w), torch.float32)
         reg.export_singleton("RGBOut", "rgb")
         reg.export_singleton("DepthOut", "depth")
+        if self.tlas_max_instances > 0:
+            # the true per-view frustum overlap count: the cull tier's
+            # overflow signal (the cull is exact while overlap <= K)
+            reg.register_singleton("TlasOverlap", (v,), torch.int32)
+            reg.export_singleton("TlasOverlap", "tlas_overlap")
 
     def setup_tasks(self, b: TaskGraphBuilder, deps=()):
         return b.custom(self._render_node, deps=deps, name="render_views")
@@ -93,9 +115,12 @@ class RenderingSystem:
     # ------------------------------------------------------------- node
 
     def render_inputs(self, state: SimState):
-        """``render_views``' arguments after the config at ``state``:
-        mesh, instance pos/rot/scale/obj [W, N, ...], the per-view mask
-        [W, V, N] and the cameras [W, V, 3|4]."""
+        """The render function's arguments after the config at ``state``:
+        the tables (mesh, or the BLAS tables), instance pos/rot/scale/obj
+        [W, N, ...], the per-view mask [W, V, N] and the cameras
+        [W, V, 3|4]; in the BLAS tier then the materials and the lights
+        (``lights_fn(state)`` where given), which
+        ``render/kernel.py::kernel_inputs`` takes in that order too."""
         t = state.tables[self.body_arch]
         pos = t.columns["Position"]               # [W, N, 3]
         rot = t.columns["Rotation"]
@@ -109,12 +134,62 @@ class RenderingSystem:
         inst_mask = cst["view_mask"][None].expand(
             (w,) + cst["view_mask"].shape)
         inst_obj = cst["render_obj"][None].expand(pos.shape[:2])
-        return (cst["mesh"], pos, rot, scale, inst_obj, inst_mask,
-                cam_pos, cam_rot)
+        args = (pos, rot, scale, inst_obj, inst_mask, cam_pos, cam_rot)
+        if self.blas is None:
+            return (cst["mesh"],) + args
+        lights = (cst["lights"] if self.lights_fn is None
+                  else self.lights_fn(state))
+        return (cst["blas"],) + args + (cst["materials"], lights)
 
     def _render_node(self, sm: StateManager, state: SimState, node_key):
-        rgb, depth = render_views(self.cfg, *self.render_inputs(state))
+        k = self.tlas_max_instances
+        inputs = self.render_inputs(state)
+        overlap = None
+        if self.blas is not None:
+            # the mesh-BVH tier: materials, textures and shadows sampled
+            # per hit (through the raycast kernel where it can shade them)
+            from .blas import render_views_blas
+
+            out = render_views_blas(
+                self.cfg, *inputs[:8], materials=inputs[8],
+                lights=inputs[9], max_instances_per_view=k)
+            rgb, depth = out[:2]
+            if k > 0:
+                overlap = out[2]
+        elif k > 0:
+            from .tlas import render_views_tlas
+
+            rgb, depth, overlap = render_views_tlas(
+                self.cfg, *inputs, max_instances_per_view=k)
+        else:
+            rgb, depth = render_views(self.cfg, *inputs)
         singles = dict(state.singletons)
         singles["RGBOut"] = rgb
         singles["DepthOut"] = depth
+        if overlap is not None and "TlasOverlap" in singles:
+            singles["TlasOverlap"] = overlap.to(torch.int32)
         return dataclasses.replace(state, singletons=singles)
+
+    # ------------------------------------------------------- adaptive K
+
+    def maybe_grow_tlas(self, executor, margin: float = 1.0) -> int:
+        """Adaptive cull K (the capacity-tier pattern): if any view's
+        true frustum overlap exceeded the current K, raise K to the
+        observed maximum (times ``margin``, rounded up to a multiple of
+        4, at most the instance count). Returns the new K (unchanged
+        without an overflow). Reads the overlap back to the host: call
+        it between rollouts, not every step.
+
+        The JAX package also drops its executor's compiled step
+        functions here; the port's executor is eager and keeps none, so
+        the next step simply renders at the new K."""
+        if self.tlas_max_instances <= 0:
+            return self.tlas_max_instances
+        seen = int(executor.state.singletons["TlasOverlap"].max())
+        if seen <= self.tlas_max_instances:
+            return self.tlas_max_instances
+        new_k = int(-(-int(seen * margin) // 4) * 4)
+        # K past the instance count selects everything
+        new_k = min(new_k, int(self._host["render_obj"].shape[0]))
+        self.tlas_max_instances = new_k
+        return new_k

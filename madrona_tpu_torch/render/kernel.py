@@ -10,19 +10,17 @@ batched over worlds and views.
 
 The "acceleration structure" is the flat per-view triangle list itself:
 for batch-sim scenes (tens of instances of tens of triangles) no tree is
-needed. Scenes past ``MAX_FLAT_TRIS`` fall back to the dense tracer.
+needed. Scenes past ``MAX_FLAT_TRIS`` go to the dense tracer (or, in the
+mesh-BVH tier, the BVH walk).
 
 Eligibility (:func:`kernel_eligible`): flat triangle count within the
 budget, lights either absent or all directional with at most one
 shadow caster (the kernel's shadow test needs one shared direction).
-``lights`` and ``materials`` are read by field name only (the light and
-material tables themselves come with the BLAS tier): ``lights`` needs
-``direction, is_spot, cast_shadow, active, intensity`` as [W, L, ...]
-tensors and ``materials`` needs ``base_color [M, 4], tex_id [M]`` and
-``atlas [A, S, S, 3]``; the per-triangle uvs and material ids are
-``blas.tri_uv [O, T, 3, 2]`` and ``blas.tri_mat [O, T]``. The per-view
-overlap counts of the cull tier (``view_overlap_counts``) come with
-``render/tlas.py``.
+``lights`` is a ``render/lights.Lights`` table [W, L] and ``materials`` a
+``render/materials.MaterialTables``; the per-triangle uvs and material
+ids are ``blas.tri_uv [O, T, 3, 2]`` and ``blas.tri_mat [O, T]``
+(``render/blas.BlasTables``). :func:`view_overlap_counts` is the cull
+tier's per-view overlap count, computed beside the kernel's full trace.
 """
 
 from __future__ import annotations
@@ -46,9 +44,20 @@ def _host(x):
 def _static_lights_info(lights, want_shadows):
     """Host-side analysis of a (static) light table. Returns
     (ok, shadow_idx): whether the kernel can shade it, and the one
-    shadow-casting slot or -1."""
+    shadow-casting slot or -1.
+
+    The flags are read back to the host once per table and the answer is
+    kept on the table object: a light table is static, and one whose
+    flags change is a new table (``Lights.map``, ``make_lights``)."""
     if lights is None:
         return True, -1
+    seen = vars(lights).setdefault("_kernel_lights_info", {})
+    if want_shadows not in seen:
+        seen[want_shadows] = _lights_info(lights, want_shadows)
+    return seen[want_shadows]
+
+
+def _lights_info(lights, want_shadows):
     spot = _host(lights.is_spot)
     active = _host(lights.active)
     cast = _host(lights.cast_shadow)
@@ -304,3 +313,21 @@ def render_views_kernel(
     rgb = out[:, :, rck.O_R:rck.O_B + 1].permute(0, 1, 3, 4, 2)
     depth = out[:, :, rck.O_T]
     return rgb.contiguous(), depth.contiguous()
+
+
+def view_overlap_counts(obj_lo, obj_hi, inst_pos, inst_rot, inst_scale,
+                        inst_obj, inst_mask, cam_pos, cam_rot, cfg):
+    """[W, V] per-view frustum overlap counts: the cull tier's overflow
+    signal (``render/tlas.py::cull_view_topk``), computed without tracing
+    a culled set. The kernel traces the full instance list, so the count
+    only informs callers (``RenderingSystem.maybe_grow_tlas``).
+    ``inst_mask`` is [W, V, I]."""
+    from .raycast import per_view
+    from .tlas import cull_view_topk, instance_world_aabbs
+
+    lo, hi = instance_world_aabbs(obj_lo, obj_hi, inst_pos, inst_rot,
+                                  inst_scale, inst_obj)       # [W, I, 3]
+    n_views = cam_pos.shape[1]
+    return cull_view_topk(per_view(lo, n_views), per_view(hi, n_views),
+                          inst_mask, cam_pos, cam_rot, 1, cfg.fov_deg,
+                          cfg.width / cfg.height, cfg.t_max)[2]

@@ -6,8 +6,9 @@ render object is a padded ``[T, 3]`` triangle table and a scene is the
 flat list of its instances' triangles. The registry accumulates numpy
 rows on the host; :meth:`MeshRegistry.build` stacks them into CPU
 tensors and :meth:`MeshTables.to` moves them to a device, as
-``ObjectManager.to`` does for the collision tables. The mesh-BVH bake
-(``build_blas``) comes with the BLAS render tier.
+``ObjectManager.to`` does for the collision tables.
+:meth:`MeshRegistry.build_blas` bakes the same objects into the
+mesh-BVH tier's tables (``render/blas.py``).
 """
 
 from __future__ import annotations
@@ -70,9 +71,25 @@ class MeshRegistry:
         ))
         return len(self._rows) - 1
 
-    def build_blas(self, leaf_size: int = 4):
-        raise NotImplementedError(
-            "the mesh-BVH (BLAS) render tier is not ported yet"
+    def build_blas(self, leaf_size: int = 4, device=None):
+        """Bake the same registered objects into the mesh-BVH tier
+        (``render/blas.py::BlasTables``) on ``device`` (default: the
+        card), so an env can switch from the dense tracer to the BLAS
+        tracer without declaring its geometry again: object ids stay
+        aligned across both tiers."""
+        from ..assets.bvh import build_mesh_bvh
+        from .blas import bake_blas
+
+        if not self._rows:
+            raise ValueError("no meshes registered")
+        bvhs = [build_mesh_bvh(r["verts"], r["tris"], leaf_size=leaf_size)
+                for r in self._rows]
+        return bake_blas(
+            bvhs,
+            tri_colors=[r["colors"] for r in self._rows],
+            uvs=[r["uv"] for r in self._rows],
+            materials=[r["material"] for r in self._rows],
+            device=device,
         )
 
     def add_box(self, half_extents, color=(0.8, 0.8, 0.8),

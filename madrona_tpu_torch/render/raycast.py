@@ -10,8 +10,9 @@ queries), :func:`render_views`, and the oriented-box slab tracer
 :func:`render_views` hands every scene whose flat triangle list fits the
 raycast kernel's budget to ``render/kernel.py`` (``ops/raycast_cuda``:
 the hand-written CUDA kernel on the card, its plain version on the
-CPU); larger scenes fall back to the dense tracer. The JAX package's
-``"matmul"`` tracer variant is not ported: ``tracer="matmul"`` raises.
+CPU); larger scenes go to the dense tracer, either the elementwise
+Möller–Trumbore sweep (``tracer="mt"``) or its pinhole-factorised
+variant :func:`_trace_rays_matmul` (``tracer="matmul"``).
 
 Outputs: float RGB in [0, 1] (lambert-shaded albedo) and linear depth;
 the background is the sky colour at depth ``t_max``.
@@ -42,11 +43,25 @@ class RenderConfig:
     # compute type of the dense tracer's [I, T, R] test tensors; the
     # kernel tier is float32 throughout
     dtype: str = "float32"
-    # "mt": elementwise Möller–Trumbore sweep. "matmul" is not ported.
+    # "mt": elementwise Möller–Trumbore sweep. "matmul": the pinhole
+    # factorisation, per-(instance, triangle) constant rows contracted
+    # against the ray directions by one matmul per instance.
     tracer: str = "mt"
     # shadow rays: one occlusion test toward the light per primary hit
     shadows: bool = False
     shadow_ambient: float = 0.25   # light scale inside shadow
+    # the mesh-BVH tier's walker: "auto" resolves to "gather", the binary
+    # walk ("onehot" and "wide", the JAX package's TPU walkers, raise)
+    blas_walker: str = "auto"
+
+
+TRACERS = ("mt", "matmul")
+
+
+def per_view(a, n_views: int):
+    """``a`` [W, ...] seen by each of ``n_views`` views: [W, V, ...] (an
+    expanded view, no copy)."""
+    return a[:, None].expand((a.shape[0], n_views) + a.shape[1:])
 
 
 def _norm3(v):
@@ -176,6 +191,63 @@ def _pick_shade(cfg, t_hit, n_l, col, inst_rot, inst_scale):
     return rgb, depth
 
 
+def _trace_rays_matmul(cfg, mesh: MeshTables, inst_pos, inst_rot,
+                       inst_scale, inst_obj, inst_mask, origin, dirs):
+    """Pinhole-factorised tracer: every ray shares ``origin`` [..., 3], so
+    the Möller–Trumbore numerators are per-(instance, triangle) constant
+    vectors contracted against the ray directions [..., R, 3]:
+
+        det   = d . (e2 x e1)
+        u*det = d . (e2 x (o_l - v0))
+        v*det = d . ((o_l - v0) x e1)
+        t*det = e2 . ((o_l - v0) x e1)        (independent of the ray)
+
+    one [T*3, 3] @ [3, R] matmul per instance, its inputs rounded to
+    ``cfg.dtype`` and summed in float32. Hits match :func:`_trace_rays`
+    up to the order of the sums. Returns (rgb [..., R, 3], depth [..., R])."""
+    ctype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    inv_q = m3.quat_inv(inst_rot)                               # [..., I, 4]
+    scale = torch.clamp(inst_scale, min=1e-12)
+    o_l = m3.quat_rotate(inv_q, origin[..., None, :] - inst_pos) / scale
+    d_l = m3.quat_rotate(inv_q[..., :, None, :], dirs[..., None, :, :]) / (
+        scale[..., :, None, :])                                 # [..., I, R, 3]
+
+    obj = inst_obj.long()
+    v0 = mesh.tri_v0[obj]                                       # [..., I, T, 3]
+    e1 = mesh.tri_e1[obj]
+    e2 = mesh.tri_e2[obj]
+    col = mesh.tri_color[obj]
+    tmask = mesh.tri_mask[obj]
+
+    tvec = o_l[..., None, :] - v0
+    c_det = m3.cross(e2, e1)
+    c_u = m3.cross(e2, tvec)
+    c_v = m3.cross(tvec, e1)
+    t_num = m3.dot(e2, c_v)                                     # [..., I, T]
+    coef = torch.stack([c_det, c_u, c_v], dim=-2)               # [..., I, T, 3, 3]
+    # the contraction, on inputs rounded to the compute type
+    vals = torch.einsum("...tck,...rk->...tcr",
+                        coef.to(ctype).to(torch.float32),
+                        d_l.to(ctype).to(torch.float32))        # [..., I, T, 3, R]
+    det = vals[..., 0, :]
+    eps_det = 1e-9 if ctype == torch.float32 else 1e-5
+    inv_det = torch.where(torch.abs(det) > eps_det, 1.0 / det, 0.0)
+    u = vals[..., 1, :] * inv_det
+    v = vals[..., 2, :] * inv_det
+    t = t_num[..., None] * inv_det
+
+    hit = (
+        (torch.abs(det) > eps_det)
+        & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+        & (t > 1e-3) & (t < cfg.t_max)
+        & tmask[..., None]
+        & inst_mask[..., :, None, None]
+    )
+    t_hit = torch.where(hit, t, cfg.t_max)
+    return _pick_shade(cfg, t_hit, m3.cross(e1, e2), col, inst_rot,
+                       inst_scale)
+
+
 def trace_rays_obb(inst_pos, inst_rot, inst_half, inst_mask,
                    origins, dirs, t_max):
     """Nearest-hit distance of each ray against oriented boxes, by the
@@ -214,16 +286,11 @@ def render_views(cfg: RenderConfig, mesh: MeshTables, inst_pos, inst_rot,
     by the views) or [W, V, I] (per view, e.g. each ego camera without
     its own body). Returns (rgb [W, V, H, Wpx, 3], depth [W, V, H, Wpx]).
     """
-    h, w = cfg.height, cfg.width
     n_views = cam_pos.shape[1]
-    if cfg.tracer != "mt":
-        raise NotImplementedError(
-            f"tracer={cfg.tracer!r} is not ported; use tracer='mt'"
-        )
+    if cfg.tracer not in TRACERS:
+        raise ValueError(f"unknown tracer {cfg.tracer!r}")
     if inst_mask.dim() == 2:
-        inst_mask = inst_mask[:, None, :].expand(
-            inst_mask.shape[0], n_views, inst_mask.shape[1]
-        )
+        inst_mask = per_view(inst_mask, n_views)
 
     from .kernel import kernel_eligible, render_views_kernel
 
@@ -237,13 +304,27 @@ def render_views(cfg: RenderConfig, mesh: MeshTables, inst_pos, inst_rot,
 
     # scenes past the kernel's triangle budget: the dense tracer, one
     # view at a time
-    rgbs, deps = [], []
-    for v in range(n_views):
-        o, d = camera_rays(cfg, cam_pos[:, v], cam_rot[:, v])
-        rgb, dep = _trace_rays(
-            cfg, mesh, inst_pos, inst_rot, inst_scale, inst_obj,
-            inst_mask[:, v], o.reshape(-1, h * w, 3), d.reshape(-1, h * w, 3),
-        )
-        rgbs.append(rgb.reshape(-1, h, w, 3))
-        deps.append(dep.reshape(-1, h, w))
-    return torch.stack(rgbs, dim=1), torch.stack(deps, dim=1)
+    outs = [trace_view(cfg, mesh, inst_pos, inst_rot, inst_scale, inst_obj,
+                       inst_mask[:, v], cam_pos[:, v], cam_rot[:, v])
+            for v in range(n_views)]
+    return (torch.stack([o[0] for o in outs], dim=1),
+            torch.stack([o[1] for o in outs], dim=1))
+
+
+def trace_view(cfg: RenderConfig, mesh: MeshTables, inst_pos, inst_rot,
+               inst_scale, inst_obj, inst_mask, cam_pos, cam_rot):
+    """One view of every world through the dense tracer ``cfg.tracer``:
+    instances [W, I, ...], ``inst_mask`` [W, I], the camera [W, 3|4].
+    Returns (rgb [W, H, Wpx, 3], depth [W, H, Wpx])."""
+    h, w = cfg.height, cfg.width
+    o, d = camera_rays(cfg, cam_pos, cam_rot)
+    d = d.reshape(-1, h * w, 3)
+    args = (cfg, mesh, inst_pos, inst_rot, inst_scale, inst_obj, inst_mask)
+    if cfg.tracer == "matmul":
+        # pinhole: every ray of the view starts at the camera
+        rgb, dep = _trace_rays_matmul(*args, cam_pos, d)
+    elif cfg.tracer == "mt":
+        rgb, dep = _trace_rays(*args, o.reshape(-1, h * w, 3), d)
+    else:
+        raise ValueError(f"unknown tracer {cfg.tracer!r}")
+    return rgb.reshape(-1, h, w, 3), dep.reshape(-1, h, w)

@@ -6,7 +6,9 @@
 
 ``--env`` is ``escape_room`` (default, 4096 worlds), ``hide_seek`` (Hide &
 Seek with 64 x 64 pixels through its ("step", "render") launch, 1024
-worlds) or ``hide_seek_state`` (state only, 16384 worlds). Prints, for
+worlds), ``hide_seek_blas`` (the same through the mesh-BVH render tier,
+``render_tier="blas"``: materials, the sun and its shadow) or
+``hide_seek_state`` (state only, 16384 worlds). Prints, for
 make_sim(env, worlds) on the card after a warm-up:
   * the card's name and power limit;
   * the unfenced step time (host clock around `steps` steps ending in a
@@ -43,6 +45,8 @@ PROFILED_STEPS = 5
 ENVS = {
     "escape_room": (EscapeRoom, 4096),
     "hide_seek": (lambda: HideSeek(render_size=64), 1024),
+    "hide_seek_blas": (lambda: HideSeek(render_size=64, render_tier="blas"),
+                       1024),
     "hide_seek_state": (lambda: HideSeek(pixels=False), 16384),
 }
 

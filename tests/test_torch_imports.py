@@ -48,6 +48,10 @@ def test_package_import_leaves_jax_out():
         "madrona_tpu_torch.ops.solver_cuda, "
         "madrona_tpu_torch.ops.raycast_cuda, madrona_tpu_torch.render, "
         "madrona_tpu_torch.render.kernel, "
+        "madrona_tpu_torch.render.blas, madrona_tpu_torch.render.tlas, "
+        "madrona_tpu_torch.render.materials, "
+        "madrona_tpu_torch.render.lights, madrona_tpu_torch.assets, "
+        "madrona_tpu_torch.utils.morton, "
         "madrona_tpu_torch.models.hide_seek; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]; "

@@ -27,7 +27,8 @@ its in-range division path is held against IEEE division.
 
 Tolerances: broadphase exact; lidar 1e-5 (the tiled cases: exact);
 raycast 0 (every plane equal
-bit for bit, for the four option sets); contacts ref/alt/num exact,
+bit for bit, for the five option sets and on the planes of Hide & Seek's
+BLAS render tier); contacts ref/alt/num exact,
 reduced contacts 1e-4, manifold points 1e-3 unordered; hull-hull record
 the same, and the fused step's lanes too; solver and fused step poses 1e-3, velocities 5e-2, angular
 velocities 2e-1 (tests/golden_inputs.py:484-492)."""
@@ -313,6 +314,28 @@ def test_raycast_source_equals_plain(cpu_kernels, name, wide):
         assert 0.3 < hit < 1
     if shadows:
         assert float(ref[:, raycast_cuda.O_OCC].mean()) > 0.02
+
+
+def test_raycast_source_equals_plain_on_blas_tier_planes(cpu_kernels):
+    """The planes Hide & Seek's BLAS render tier gives the kernel (2
+    worlds x 4 views x 16 x 16 rays, 14 instances of 12 rows, the
+    material, light and shadow options on, a 32 x 32 checker atlas):
+    every plane equal bit for bit."""
+    from madrona_tpu_torch import make_sim
+    from madrona_tpu_torch.models.hide_seek import HideSeek
+    from madrona_tpu_torch.render import kernel as rkernel
+
+    env = HideSeek(render_size=16, render_tier="blas")
+    sim = make_sim(env, num_worlds=2, seed=1, device="cpu")
+    sim.step({}, launch=("step",))              # the reset places the bodies
+    planes, opts, n_rays = rkernel.kernel_inputs(
+        env.rcfg, *env.rsys.render_inputs(sim.state))
+    assert opts["shadows"] and opts["use_lights"] and opts["use_materials"]
+    opts = raycast_cuda._options(opts)
+    got = raycast_cuda._launch(*planes, **opts)
+    ref = raycast_cuda.raytrace_plain(*planes, **opts)
+    assert torch.equal(got, ref)
+    assert 0.0 < float(ref[:, raycast_cuda.O_OCC, :n_rays].mean()) < 1.0
 
 
 @pytest.fixture(scope="module")

@@ -13,8 +13,8 @@ pixels where the two sides picked another winner among equal hits
 Then ``render_views`` of the port alone: inside the kernel's triangle
 budget it equals the glue's output; past it, it takes the dense tracer,
 whose depth agrees within 1e-3 and whose rgb differs by more than 0.02 at
-under 0.2 % of pixels. The glue and the dense tracer against the JAX ones
-are in tests/test_torch_raycast_glue.py.
+under 0.2 % of pixels, and so do the "matmul" tracer's. The glue and the
+dense tracer against the JAX ones are in tests/test_torch_raycast_glue.py.
 """
 
 import dataclasses
@@ -90,6 +90,11 @@ def test_render_views_takes_the_kernel_tier_or_the_dense_tracer(monkeypatch):
     assert rgb_d.shape == rgb.shape
     assert float((dep_d - dep).abs().max()) < 1e-3
     assert float(((rgb_d - rgb).abs() > 0.02).float().mean()) < 0.002
-    with pytest.raises(NotImplementedError):
-        t_raycast.render_views(dataclasses.replace(cfg, tracer="matmul"),
+    # the pinhole-factorised dense tracer past the budget: the same bounds
+    rgb_m, dep_m = t_raycast.render_views(
+        dataclasses.replace(cfg, tracer="matmul"), t_mesh, *targs)
+    assert float((dep_m - dep).abs().max()) < 1e-3
+    assert float(((rgb_m - rgb).abs() > 0.02).float().mean()) < 0.002
+    with pytest.raises(ValueError):
+        t_raycast.render_views(dataclasses.replace(cfg, tracer="nope"),
                                t_mesh, *targs)
