@@ -121,7 +121,44 @@ Phases, each printing its own lines:
      step each; no candidate list over its cap at any step (the long
      rollout assertion of tests/test_escape_room.py); done 1 at steps 200
      and 400 for every world and nowhere else; exports and the final
-     body state finite; a fresh sim's rollout bit-identical; env-steps/s.
+     body state finite; a fresh sim's rollout bit-identical; env-steps/s;
+ 18. the many-body tier at bench.py's pile point: make_sim(Pile(), 64
+     worlds) (256 bodies a world, the swept broadphase, the narrowphase
+     at every substep, plain PyTorch: no hand-written kernel runs on this
+     path) for 100 steps of Pile.random_actions(RandomState(0)): exports
+     finite at every step and of the expected shapes, none of the seven
+     kernels launched, a fresh sim bit-identical over 20 steps, ms/step
+     and env-steps/s; summary[:, 5] (the broadphase overflow flag) never
+     falls, and the worlds where the shakes set it are printed (the JAX
+     package sets it from step 33 on the same inputs); then 100 steps
+     without shakes, where the flag must stay 0 in every world (as it
+     does in the JAX package); then 12 steps at 1024 worlds;
+ 19. the swept broadphase against the broadphase kernel (B1) on real
+     Pile(num_bodies=48) states (53 rows, inside B1's 64) at 64 worlds,
+     at steps 12 and 24: per world the same candidate pairs, as sets, in
+     every world where neither overflows;
+ 20. 8 worlds of phase 18's run (those where the flag rises first among
+     them) carried to the CPU after steps 1, 16 and 32, and one step taken
+     on the card and on the CPU: done and summary's episode step and
+     overflow flag equal, the body state within the golden bounds
+     (pos/rot 1e-3, vel 5e-2, omega 2e-1); a check outside a bound passes
+     only with a witness (the CPU, stepped from the state with every
+     position scaled by 1 + 1e-7 or 1 - 1e-7, outside the same bound at
+     the same (world, body)), at most twice;
+ 21. Cartpole at bench.py's point, 16,384 worlds x 500 steps of bench.py's
+     actions (RandomState(0), two buckets), through rollout: env-steps/s,
+     no kernel launched, a fresh sim bit-identical over 50 steps; over the
+     oracle's 50 steps the done schedule equal to the port's CPU run and
+     obs within CART_OBS_TOL; a world whose done flips (cosf on the card
+     is not torch.cos on the CPU) is reported, and passes only where one
+     side's state lay within CART_OBS_TOL of a termination limit;
+ 22. Projectiles(capacity=8) at 4096 worlds for 40 steps (spawns through
+     make_entities, despawns through destroy_entities, the sort by
+     height), with one Executor.maybe_grow after step 20, on the card and
+     on the CPU in lockstep: every integer output (live counts, the spawn
+     and destroy totals, the tables' ids, generations, row counts and
+     overflow, the entity store) equal at every step, live positions
+     within 1e-5, the growth the same.
 
 Any failure raises (non-zero exit). The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -165,6 +202,32 @@ ROLLOUT_STEPS = 400       # bench.py's steps: two episodes of 200
 TIMING_ITERS = 200
 DEVICE_ITERS = 100        # calls a device-only timing enqueues behind a sleep
 PLAIN_PHYSICS_ITERS = 3   # the plain contacts/solver take ~0.1 s a call
+# the many-body tier and the ECS envs (phases 18-22)
+PILE_W = 64               # bench.py's pile point: 256 bodies, 64 worlds
+PILE_BIG_W = 1024
+PILE_STEPS = 100
+PILE_SAME_STEPS = 20      # steps a fresh sim is compared over, bit for bit
+PILE_BIG_STEPS = 12
+PILE_SMALL_BODIES = 48    # 53 rows: inside the broadphase kernel's 64
+PILE_SWEPT_AT = (12, 24)  # steps at which swept and B1 are compared
+# the design-point states carried to the CPU: after step 32 the overflow
+# flag rises in worlds 4 and 20 (it does so in the JAX package too)
+PILE_CHECK_AT = (1, 16, 32)
+PILE_CHECK_WORLDS = (0, 1, 2, 3, 4, 5, 20, 30)
+PILE_NUDGES = (1 + 1e-7, 1 - 1e-7)
+PILE_MAX_WITNESSED = 2
+CART_W = 16384            # bench.py's cartpole point
+CART_STEPS = 500
+CART_ORACLE_STEPS = 50    # tests/test_cartpole.py's horizon
+# card vs CPU over those 50 steps: two ulps of cosf/sinf (CUDA's bound) a
+# step; one ulp a step moves these 16,384 worlds' obs by up to 5.96e-6
+# over the 50 steps (a CPU run with torch.cos/sin nudged by an ulp)
+CART_OBS_TOL = 2e-5
+PROJ_W = 4096
+PROJ_STEPS = 40
+PROJ_CAP = 8              # small enough that the spawns overflow it
+PROJ_GROW_AT = 20         # the step after which maybe_grow runs, once
+PROJ_POS_TOL = 1e-5
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor op/s
 PEAK_BYTES = 3.35e12
@@ -1701,6 +1764,391 @@ def check_hide_seek_small(make_sim, make_env, what="hide_seek"):
     return sims[DEV]
 
 
+def world_slice(state, worlds, device):
+    """The SimState of ``worlds`` (a list of world indices) copied to
+    ``device``: every tensor with a leading worlds axis indexed there,
+    through numpy as interop carries states between packages. A world's
+    step reads only its own rows and keys, so the slice steps as those
+    worlds of the whole batch do."""
+    from madrona_tpu_torch.interop import state_from_numpy, state_to_numpy
+
+    def pick(x):
+        if isinstance(x, dict):
+            return {k: pick(v) for k, v in x.items()}
+        return x[worlds] if x.ndim else x
+
+    return state_from_numpy(pick(state_to_numpy(state)), device)
+
+
+def body_tree(state):
+    """{name: [W, N, ...] tensor on the CPU} of the body state held to the
+    golden bounds."""
+    from madrona_tpu_torch.physics import api as papi
+
+    c = state.tables[papi.RIGID_BODY].columns
+    return {"Position": c["Position"].cpu(), "Rotation": c["Rotation"].cpu(),
+            "linear": c["Velocity"]["linear"].cpu(),
+            "angular": c["Velocity"]["angular"].cpu()}
+
+
+GOLDEN = {"Position": POSE_TOL, "Rotation": POSE_TOL, "linear": VEL_TOL,
+          "angular": OMEGA_TOL}
+
+
+def outside_golden(got, ref):
+    """{name: ([W, N] mask outside the bound, largest difference)}."""
+    off = {}
+    for k, tol in GOLDEN.items():
+        d = (got[k] - ref[k]).abs().amax(-1)
+        if float(d.max()) > tol:
+            off[k] = (d > tol, float(d.max()))
+    return off
+
+
+def pile_run(make_sim, Pile, w, acts, counters=(), keep=0, save_at=()):
+    """A fresh Pile() sim at ``w`` worlds stepped through ``acts`` [T, W]:
+    (sim, the exports of the first ``keep`` steps, summary[:, 5] of every
+    step [T, W], seconds of steps 2.., the counters' launches, {t: the
+    state after t steps} for t in ``save_at``). Raises if an export of
+    any step is not finite (checked once, after the run)."""
+    import torch
+
+    sim = make_sim(Pile(), num_worlds=w, seed=0, device=DEV)
+    reset = torch.zeros((w,), dtype=torch.int32, device=DEV)
+    for k in counters:
+        k.launches = 0
+    outs, flags, saved = [], [], {}
+    finite = torch.ones((), dtype=torch.bool, device=DEV)
+    t0 = None
+    for i in range(acts.shape[0]):
+        if i in save_at:
+            saved[i] = sim.state
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        out = sim.step({"action": acts[i], "reset": reset})
+        flags.append(out["summary"][:, 5])
+        finite &= torch.isfinite(out["summary"]).all() & torch.isfinite(
+            out["reward"]).all()
+        if i < keep:
+            outs.append({k: v.clone() for k, v in out.items()})
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if not bool(finite):
+        raise AssertionError(f"pile {w} worlds: an export not finite")
+    return (sim, outs, torch.stack(flags), secs,
+            [k.launches for k in counters], saved)
+
+
+def check_pile(make_sim, Pile, kernels, card):
+    """Phase 18; returns ({worlds: ms a step}, the design-point run's
+    actions and its states at PILE_CHECK_AT, for phase 20)."""
+    import torch
+
+    ms = {}
+    w = PILE_W
+    what = f"pile {w} worlds"
+    acts = Pile.random_actions(np.random.RandomState(0), PILE_STEPS,
+                               w).to(DEV)
+    sim, outs, flags, secs, launches, saved = pile_run(
+        make_sim, Pile, w, acts, kernels, keep=PILE_SAME_STEPS,
+        save_at=PILE_CHECK_AT)
+    if any(launches):
+        raise AssertionError(f"{what}: kernels launched: " + ", ".join(
+            f"{k.symbol} {n}" for k, n in zip(kernels, launches)))
+    check_exports(outs, {"summary": (w, 6), "reward": (w,), "done": (w,)},
+                  what)
+    body = body_tree(sim.state)
+    if not all(bool(torch.isfinite(v).all()) for v in body.values()):
+        raise AssertionError(f"{what}: final body state not finite")
+    if bool((flags[1:] < flags[:-1]).any()):
+        raise AssertionError(f"{what}: summary[:, 5] fell within an episode")
+    set_at = torch.where(flags.any(0), flags.int().argmax(0) + 1, 0).cpu()
+    onsets = {int(wi): int(set_at[wi]) for wi in torch.nonzero(set_at)}
+    ms[w] = secs * 1e3 / (PILE_STEPS - 1)
+    summ = sim.state.singletons["Summary"]
+    print(f"{what}: {PILE_STEPS} steps of bench.py's actions, no kernel "
+          f"launched (counters {launches}), final mean height "
+          f"{float(summ[:, 0].mean()):.3f}, rest fraction "
+          f"{float(summ[:, 3].mean()):.3f}; summary[:, 5] set in "
+          f"{len(onsets)} worlds, from step (world: step) {onsets}; "
+          f"{ms[w]:.2f} ms/step, {w * (PILE_STEPS - 1) / secs:.1f} "
+          f"env-steps/s ({card})")
+    _, outs2, _, _, _, _ = pile_run(make_sim, Pile, w,
+                                    acts[:PILE_SAME_STEPS],
+                                    keep=PILE_SAME_STEPS)
+    for i, (a, b) in enumerate(zip(outs, outs2)):
+        for name in a:
+            if not torch.equal(a[name], b[name]):
+                raise AssertionError(f"{what} step {i}: {name} differs "
+                                     "across fresh sims")
+    print(f"{what}: exports finite and of the expected shapes; a fresh sim "
+          f"bit-identical over {PILE_SAME_STEPS} steps")
+    per_node = node_times(sim, acts)
+    print(f"{what}, ms/step by node (synchronized): " + ", ".join(
+        f"{k} {v * 1e3:.2f}" for k, v in per_node.items()) + f" ({card})")
+    del outs, outs2, sim
+
+    # the same point without shakes: the JAX package's settle condition
+    zero = torch.zeros((PILE_STEPS, w), dtype=torch.int32, device=DEV)
+    _, _, flags, _, launches, _ = pile_run(make_sim, Pile, w, zero, kernels)
+    if any(launches) or float(flags.max()) != 0.0:
+        steps = sorted({int(i) + 1 for i in torch.nonzero(flags)[:, 0]})
+        raise AssertionError(f"{what} without shakes: summary[:, 5] set at "
+                             f"steps {steps}, launches {launches}")
+    print(f"{what} without shakes: {PILE_STEPS} steps, summary[:, 5] 0 at "
+          "every step in every world, no kernel launched")
+
+    w = PILE_BIG_W
+    acts_big = Pile.random_actions(np.random.RandomState(0), PILE_BIG_STEPS,
+                                   w).to(DEV)
+    sim, outs, flags, secs, launches, _ = pile_run(
+        make_sim, Pile, w, acts_big, kernels, keep=PILE_BIG_STEPS)
+    if any(launches):
+        raise AssertionError(f"pile {w} worlds: kernels launched {launches}")
+    check_exports(outs, {"summary": (w, 6), "reward": (w,), "done": (w,)},
+                  f"pile {w} worlds")
+    ms[w] = secs * 1e3 / (PILE_BIG_STEPS - 1)
+    print(f"pile {w} worlds: {PILE_BIG_STEPS} steps, exports finite, no "
+          f"kernel launched, summary[:, 5] set in "
+          f"{int(flags.any(0).sum())} worlds; {ms[w]:.2f} ms/step, "
+          f"{w * (PILE_BIG_STEPS - 1) / secs:.1f} env-steps/s ({card})")
+    return ms, acts, saved
+
+
+def pair_sets(c, n):
+    """[W, N+1, N+1] bool: the unordered candidate pairs of every list."""
+    import torch
+
+    w = c.hh.shape[0]
+    adj = torch.zeros((w, n + 1, n + 1), dtype=torch.bool, device=c.hh.device)
+    for buf, num in ((c.hh, c.hh_num), (c.hp, c.hp_num), (c.sp, c.sp_num)):
+        live = (torch.arange(buf.shape[1], device=buf.device)[None]
+                < num[:, None])
+        a, b = buf[..., 0].long(), buf[..., 1].long()
+        widx = torch.arange(w, device=buf.device)[:, None].expand_as(a)
+        adj[widx[live], a[live], b[live]] = True
+        adj[widx[live], b[live], a[live]] = True
+    return adj
+
+
+def check_swept_vs_b1(make_sim, Pile, broadphase_cuda):
+    """Phase 19: the swept tier and B1 on real Pile(48) states."""
+    import torch
+    from madrona_tpu_torch.physics import api as papi
+    from madrona_tpu_torch.physics import broadphase as bp
+
+    env = Pile(num_bodies=PILE_SMALL_BODIES)
+    n = env.n_total
+    sim = make_sim(env, num_worlds=PILE_W, seed=2, device=DEV)
+    om = env.om.to(DEV)
+    acts = Pile.random_actions(np.random.RandomState(1), max(PILE_SWEPT_AT),
+                               PILE_W).to(DEV)
+    reset = torch.zeros((PILE_W,), dtype=torch.int32, device=DEV)
+    for t in range(max(PILE_SWEPT_AT) + 1):
+        if t in PILE_SWEPT_AT:
+            body = papi.body_state(sim.executor.sm, sim.state)
+            sw = bp.find_candidates_swept(body, om, env.caps, env.cfg.dt,
+                                          window=env.cfg.broadphase_window)
+            b1 = broadphase_cuda.find_candidates_kernel(body, om, env.caps,
+                                                        env.cfg.dt)
+            ok = ~(sw.overflow | b1.overflow)
+            a, b = pair_sets(sw, n), pair_sets(b1, n)
+            diff = (a != b).flatten(1).any(1) & ok
+            if bool(diff.any()):
+                raise AssertionError(
+                    f"swept vs B1 at step {t}: pairs differ in worlds "
+                    f"{torch.nonzero(diff).flatten().tolist()}")
+            pairs = int(a[ok].sum()) // 2
+            print(f"swept == B1 [pile {PILE_SMALL_BODIES} bodies, step {t}]: "
+                  f"{int(ok.sum())} of {PILE_W} worlds without overflow, "
+                  f"{pairs} candidate pairs, the same sets per world")
+            if int(ok.sum()) == 0 or pairs == 0:
+                raise AssertionError("swept vs B1: nothing to compare")
+        if t < max(PILE_SWEPT_AT):
+            sim.step({"action": acts[t], "reset": reset})
+
+
+def check_pile_card_vs_cpu(make_sim, Pile, acts, saved):
+    """Phase 20: PILE_CHECK_WORLDS of the design-point run's states at
+    PILE_CHECK_AT, one step on the card and on the CPU."""
+    import torch
+    from madrona_tpu_torch.physics import api as papi
+
+    worlds = list(PILE_CHECK_WORLDS)
+    w = len(worlds)
+    card_fn = make_sim(Pile(), num_worlds=w, seed=0, device=DEV).step_fn()
+    cpu_fn = make_sim(Pile(), num_worlds=w, seed=0, device="cpu").step_fn()
+    zeros = torch.zeros((w,), dtype=torch.int32)
+
+    def nudged(state, f):
+        t_rb = state.tables[papi.RIGID_BODY]
+        cols = dict(t_rb.columns)
+        cols["Position"] = cols["Position"] * f
+        return dataclasses.replace(state, tables={
+            **state.tables,
+            papi.RIGID_BODY: dataclasses.replace(t_rb, columns=cols)})
+
+    witnessed, worst, flags = [], {k: 0.0 for k in GOLDEN}, {}
+    for t in PILE_CHECK_AT:
+        inp = {"action": acts[t, worlds].cpu(), "reset": zeros}
+        start = world_slice(saved[t], worlds, "cpu")
+        c_next, c_out = card_fn(world_slice(saved[t], worlds, DEV),
+                                {k: v.to(DEV) for k, v in inp.items()})
+        p_next, p_out = cpu_fn(start, inp)
+        if not torch.equal(c_out["done"].cpu(), p_out["done"]):
+            raise AssertionError(f"pile card vs CPU step {t}: done")
+        if not torch.equal(c_out["summary"][:, 4:].cpu(),
+                           p_out["summary"][:, 4:]):
+            raise AssertionError(f"pile card vs CPU step {t}: summary's "
+                                 "episode step or overflow flag")
+        flags[t + 1] = [wi for wi, f in zip(worlds, p_out["summary"][:, 5])
+                        if f > 0]
+        got, ref = body_tree(c_next), body_tree(p_next)
+        for k in GOLDEN:
+            worst[k] = max(worst[k], float((got[k] - ref[k]).abs().max()))
+        off = outside_golden(got, ref)
+        if not off:
+            continue
+        # a witness: the CPU itself, from the state with every position
+        # scaled by 1 +- 1e-7, outside the same bound at the same place
+        wit = {}
+        for f in PILE_NUDGES:
+            for k, (mask, _) in outside_golden(
+                    body_tree(cpu_fn(nudged(start, f), inp)[0]), ref).items():
+                wit[k] = wit[k] | mask if k in wit else mask
+        for k, (mask, d) in off.items():
+            if k not in wit or bool((mask & ~wit[k]).any()):
+                raise AssertionError(f"pile card vs CPU step {t}: {k} off by "
+                                     f"{d} with no witness")
+        witnessed.append((t, {k: d for k, (_, d) in off.items()}))
+    if len(witnessed) > PILE_MAX_WITNESSED:
+        raise AssertionError(f"pile card vs CPU: witnessed {witnessed}")
+    print(f"pile card vs CPU path: worlds {worlds} of the {PILE_W}-world run, "
+          f"one step from the card's state after steps {PILE_CHECK_AT}: done "
+          f"and summary[:, 4:] equal (overflow flag set after the step in "
+          f"worlds {flags}), largest body differences {worst!r}; checks "
+          f"with a witness {witnessed}")
+
+
+def check_cartpole(make_sim, rollout, Cartpole, kernels, card):
+    """Phase 21: Cartpole at bench.py's point; returns ms/step."""
+    import torch
+    from madrona_tpu_torch.models import cartpole as cp
+
+    acts = Cartpole.random_actions(np.random.RandomState(0), CART_STEPS,
+                                   CART_W)
+    inputs = {"action": acts, "reset": torch.zeros((CART_STEPS, CART_W),
+                                                   dtype=torch.int32)}
+    card_in = {k: v.to(DEV) for k, v in inputs.items()}
+    h = CART_ORACLE_STEPS
+    sim = make_sim(Cartpole(), num_worlds=CART_W, seed=0, device=DEV)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = rollout(sim, card_in)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = [k.launches for k in kernels]
+    if any(launches):
+        raise AssertionError(f"cartpole: kernels launched {launches}")
+    again = rollout(make_sim(Cartpole(), num_worlds=CART_W, seed=0,
+                             device=DEV), {k: v[:h] for k, v in card_in.items()})
+    for name in again:
+        if not torch.equal(outs[name][:h], again[name]):
+            raise AssertionError(f"cartpole: {name} differs across fresh sims")
+    done = outs["done"].cpu()
+    ms = secs * 1e3 / CART_STEPS
+    print(f"cartpole: {CART_W} worlds x {CART_STEPS} steps through rollout, "
+          f"no kernel launched, {int(done.sum())} episode ends, a fresh sim "
+          f"bit-identical over {h} steps; {ms:.3f} ms/step, "
+          f"{CART_W * CART_STEPS / secs:.1f} env-steps/s ({card})")
+
+    cpu = rollout(make_sim(Cartpole(), num_worlds=CART_W, seed=0,
+                           device="cpu"),
+                  {k: v[:h] for k, v in inputs.items()})
+    g_obs = outs["obs"][:h, :, 0].cpu()
+    c_obs = cpu["obs"][:, :, 0]
+    # a world is compared until its done schedule first differs
+    flip = done[:h] != cpu["done"]
+    first = torch.where(flip.any(0), flip.int().argmax(0), h)
+    same_so_far = torch.arange(h)[:, None] < first[None, :]
+    d = (g_obs - c_obs).abs().amax(-1)
+    worst = float(torch.where(same_so_far, d, 0.0).max())
+    if worst > CART_OBS_TOL:
+        raise AssertionError(f"cartpole card vs CPU: obs off by {worst}")
+    flips = []
+    for wi in torch.nonzero(flip.any(0)).flatten().tolist():
+        t = int(first[wi])
+        margin = min((float(min(cp.X_LIMIT - o[0].abs(),
+                                cp.THETA_LIMIT - o[2].abs(), key=abs))
+                      for o in (g_obs[t, wi], c_obs[t, wi])), key=abs)
+        flips.append((t + 1, wi, margin))
+        if abs(margin) > CART_OBS_TOL:
+            raise AssertionError(f"cartpole card vs CPU: done flips at step "
+                                 f"{t + 1}, world {wi}, {margin} from a limit")
+    told = ("equal" if not flips else "equal but for the flips (step, "
+            f"world, distance to a limit) {flips}")
+    print(f"cartpole card vs CPU path: {CART_W} worlds x {h} steps, done "
+          f"schedule {told}, obs max_abs_diff={worst!r}")
+    return ms
+
+
+def check_projectiles(make_sim, Projectiles, kernels, card):
+    """Phase 22: entity churn with one growth, card against CPU."""
+    import torch
+
+    sims = {d: make_sim(Projectiles(capacity=PROJ_CAP), num_worlds=PROJ_W,
+                        seed=0, device=d, max_entities=64)
+            for d in ("cpu", DEV)}
+    for k in kernels:
+        k.launches = 0
+    grown, totals = {}, None
+    for t in range(PROJ_STEPS):
+        outs = {}
+        for d, sim in sims.items():
+            z = torch.zeros((PROJ_W,), dtype=torch.int32, device=d)
+            outs[d] = sim.step({"action": z, "reset": z})
+            if t == PROJ_GROW_AT:
+                grown[d] = sim.executor.maybe_grow()
+        g, c = sims[DEV].state, sims["cpu"].state
+        tg, tc = g.tables["Projectile"], c.tables["Projectile"]
+        ints = [("live", outs[DEV]["live"], outs["cpu"]["live"]),
+                ("entity_id", tg.entity_id, tc.entity_id),
+                ("entity_gen", tg.entity_gen, tc.entity_gen),
+                ("num_rows", tg.num_rows, tc.num_rows),
+                ("overflow", tg.overflow, tc.overflow)]
+        ints += [(f"store.{f}", getattr(g.entities, f),
+                  getattr(c.entities, f))
+                 for f in ("gen", "arch", "row", "free_ids", "free_top")]
+        ints += [(k, g.singletons[k], c.singletons[k])
+                 for k in ("TotalSpawned", "TotalDestroyed", "LiveCount")]
+        for name, a, b in ints:
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"projectiles card vs CPU step {t}: "
+                                     f"{name} differs")
+        live = (torch.arange(tc.entity_id.shape[1])[None]
+                < tc.num_rows[:, None])
+        d = (tg.columns["PPos"].cpu() - tc.columns["PPos"]).abs().amax(-1)
+        if float(torch.where(live, d, 0.0).max()) > PROJ_POS_TOL:
+            raise AssertionError(f"projectiles card vs CPU step {t}: "
+                                 "positions off")
+        totals = (int(c.singletons["TotalSpawned"].sum()),
+                  int(c.singletons["TotalDestroyed"].sum()))
+    if grown[DEV] != grown["cpu"] or not grown["cpu"]:
+        raise AssertionError(f"projectiles: growth {grown}")
+    launches = [k.launches for k in kernels]
+    if any(launches):
+        raise AssertionError(f"projectiles: kernels launched {launches}")
+    print(f"projectiles card vs CPU path: {PROJ_W} worlds x {PROJ_STEPS} "
+          f"steps, capacity {PROJ_CAP} grown to "
+          f"{grown['cpu']['Projectile']} by maybe_grow after step "
+          f"{PROJ_GROW_AT + 1}; {totals[0]} spawned, {totals[1]} destroyed; "
+          "every integer output equal at every step, live positions within "
+          f"{PROJ_POS_TOL}, no kernel launched ({card})")
+
+
 def main() -> int:
     import torch
 
@@ -1709,8 +2157,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     from madrona_tpu_torch import make_sim, rollout
+    from madrona_tpu_torch.models.cartpole import Cartpole
     from madrona_tpu_torch.models.escape_room import EscapeRoom
     from madrona_tpu_torch.models.hide_seek import HideSeek
+    from madrona_tpu_torch.models.pile import Pile
+    from madrona_tpu_torch.models.projectiles import Projectiles
     from madrona_tpu_torch.ops import (
         broadphase_cuda, contacts_cuda, cuda_build, fused_cuda,
         hh_narrowphase_cuda, lidar_cuda, raycast_cuda, solver_cuda,
@@ -2243,6 +2694,19 @@ def main() -> int:
     del largs, depth
     torch.cuda.empty_cache()
     check_rollout(make_sim, rollout, EscapeRoom, kernels, card)
+
+    # ---- 18-22: the many-body tier and the ECS envs; no kernel on these
+    # paths, every counter must stay at 0
+    torch.cuda.empty_cache()
+    pile_ms, pile_acts, pile_saved = check_pile(make_sim, Pile, all_k, card)
+    check_swept_vs_b1(make_sim, Pile, broadphase_cuda)
+    check_pile_card_vs_cpu(make_sim, Pile, pile_acts, pile_saved)
+    del pile_saved
+    cart_ms = check_cartpole(make_sim, rollout, Cartpole, all_k, card)
+    check_projectiles(make_sim, Projectiles, all_k, card)
+    print("many-body tier and ECS envs, ms/step: " + ", ".join(
+        f"pile {w} worlds {v:.2f}" for w, v in pile_ms.items())
+        + f", cartpole {CART_W} worlds {cart_ms:.3f} ({card})")
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -32,6 +32,15 @@ class ECSRegistry:
             no_entities=temporary,
         ))
 
+    def register_bundle(self, name: str, components: Sequence[str]):
+        """A named component group, expanded inside archetype component
+        lists (the reference's registerBundle); bundles may nest."""
+        return self._sm.register_bundle(name, components)
+
+    def register_bundle_alias(self, alias: str, bundle: str):
+        """A second name for an existing bundle (registerBundleAlias)."""
+        return self._sm.register_bundle_alias(alias, bundle)
+
     def register_singleton(self, name: str, shape=(), dtype=torch.float32,
                            fields=None) -> ComponentSpec:
         return self._sm.register_singleton(ComponentSpec(

@@ -1,9 +1,12 @@
 """StateManager and SimState: ECS schemas and the state they describe.
 
 Port of ``madrona_tpu/core/state.py``. The schema side (components,
-archetypes, singletons, import/export slots) is plain Python; the state
-side is :class:`SimState`, a dataclass of tensors with an explicit
-device. Exported tensors are the state's own tensors: no copy-out.
+bundles, archetypes, singletons, import/export slots, queries) is plain
+Python; the state side is :class:`SimState`, a dataclass of tensors with
+an explicit device. Exported tensors are the state's own tensors: no
+copy-out. :meth:`StateManager.make_entities` and
+:meth:`StateManager.append_temporaries` create rows in a batch, the
+same for every world.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from . import archetype as _arch
 from .device import resolve_device
 from . import entity_store as _estore
 from .component import ArchetypeSpec, ComponentSpec
+from ..ops import scatter as _scatter
 from ..utils import rng as _rng
 
 
@@ -50,6 +54,7 @@ class StateManager:
         self.components: Dict[str, ComponentSpec] = {}
         self.archetypes: Dict[str, ArchetypeSpec] = {}
         self.singletons: Dict[str, ComponentSpec] = {}
+        self.bundles: Dict[str, Tuple[str, ...]] = {}
         self.exports: Dict[str, Tuple[str, str]] = {}  # slot -> (arch, comp)
         self.singleton_exports: Dict[str, str] = {}    # slot -> singleton
         self.imports: Dict[str, Tuple[str, str]] = {}  # slot -> (arch, comp)
@@ -69,6 +74,9 @@ class StateManager:
         self._check_open()
         if spec.name in self.archetypes:
             raise ValueError(f"archetype {spec.name!r} already registered")
+        expanded = self._expand_bundles(spec.components)
+        if expanded != spec.components:
+            spec = dataclasses.replace(spec, components=expanded)
         for cname in spec.components:
             if cname not in self.components:
                 raise ValueError(
@@ -77,6 +85,40 @@ class StateManager:
                 )
         self.archetypes[spec.name] = spec
         return spec
+
+    def register_bundle(self, name: str, components) -> Tuple[str, ...]:
+        """A named component group, usable inside archetype component
+        lists; bundles may nest."""
+        self._check_open()
+        if name in self.bundles or name in self.components:
+            raise ValueError(f"bundle {name!r} collides with existing name")
+        expanded = self._expand_bundles(tuple(components))
+        for cname in expanded:
+            if cname not in self.components:
+                raise ValueError(
+                    f"bundle {name!r} references unregistered "
+                    f"component {cname!r}"
+                )
+        self.bundles[name] = expanded
+        return expanded
+
+    def register_bundle_alias(self, alias: str, bundle: str):
+        """A second name for a registered bundle."""
+        self._check_open()
+        if bundle not in self.bundles:
+            raise ValueError(f"bundle {bundle!r} not registered")
+        if alias in self.bundles or alias in self.components:
+            raise ValueError(f"alias {alias!r} collides with existing name")
+        self.bundles[alias] = self.bundles[bundle]
+        return self.bundles[alias]
+
+    def _expand_bundles(self, components) -> Tuple[str, ...]:
+        """Component names with each bundle replaced by its members, each
+        name once (in first-seen order)."""
+        out = []
+        for cname in components:
+            out.extend(self.bundles.get(cname, (cname,)))
+        return tuple(dict.fromkeys(out))
 
     def register_singleton(self, spec: ComponentSpec) -> ComponentSpec:
         self._check_open()
@@ -134,9 +176,22 @@ class StateManager:
                 raise KeyError(f"unknown input slot {slot!r}")
         return dataclasses.replace(state, tables=tables, singletons=singles)
 
+    def arch_index(self, name: str) -> int:
+        """The archetype's index in registration order (the entity
+        store's ``arch`` value)."""
+        return list(self.archetypes).index(name)
+
     def _check_open(self):
         if self._frozen:
             raise RuntimeError("StateManager is frozen (state already built)")
+
+    def query(self, *component_names: str):
+        """The archetypes holding every one of ``component_names``, in
+        registration order."""
+        return [
+            a.name for a in self.archetypes.values()
+            if all(c in a.components for c in component_names)
+        ]
 
     # -- state construction --------------------------------------------------
 
@@ -183,3 +238,46 @@ class StateManager:
         for slot, name in self.singleton_exports.items():
             out[slot] = state.singletons[name]
         return out
+
+    # -- entity operations ---------------------------------------------------
+
+    def make_entities(self, state: SimState, arch: str, values, valid):
+        """Create up to K entities a world in archetype ``arch``.
+
+        values[comp]: [W, K, ...]; valid: [W, K] bool. Returns (state',
+        entity [W, K, 2]). The candidates that would overflow the table
+        are masked before ids are allocated (so no handle points past
+        capacity); they get Entity.none() and count into the table's
+        overflow."""
+        spec = self.archetypes[arch]
+        table = state.tables[arch]
+        base_row = table.num_rows
+        vi = valid.to(torch.int32)
+        rank = torch.cumsum(vi, dim=1, dtype=torch.int32) - vi
+        fits = base_row[:, None] + rank < spec.capacity
+        store, ent, rows = _estore.alloc(
+            state.entities, valid & fits, self.arch_index(arch), base_row)
+        ok = rows >= 0
+        table = _arch.append_many(table, values, ok)
+        table = dataclasses.replace(
+            table, overflow=table.overflow + (valid & ~fits).sum(
+                1, dtype=torch.int32))
+        w, k = ok.shape
+        widx = torch.arange(w, device=ok.device)[:, None].expand(w, k)
+        rows_l = torch.clamp(rows, min=0).long()
+        table = dataclasses.replace(
+            table,
+            entity_id=_scatter.masked_set_2d(table.entity_id, widx, rows_l,
+                                             ent[..., 1], ok),
+            entity_gen=_scatter.masked_set_2d(table.entity_gen, widx, rows_l,
+                                              ent[..., 0], ok),
+        )
+        tables = dict(state.tables)
+        tables[arch] = table
+        return dataclasses.replace(state, tables=tables, entities=store), ent
+
+    def append_temporaries(self, state: SimState, arch: str, values, valid):
+        """Append id-less rows to a temporary archetype (makeTemporary)."""
+        tables = dict(state.tables)
+        tables[arch] = _arch.append_many(state.tables[arch], values, valid)
+        return dataclasses.replace(state, tables=tables)

@@ -1,7 +1,7 @@
 """PhysicsSystem: registration and the physics taskgraph node.
 
 Port of ``madrona_tpu/physics/api.py`` on its Jacobi branches.
-Broadphase once per step on its kernel wrapper. Then one of:
+Broadphase once per step (below), then one of:
 
   * ``megakernel_fused=True``: the whole step (predicted-pose
     integrate, every narrowphase lane, every substep) in the fused-step
@@ -19,9 +19,14 @@ Broadphase once per step on its kernel wrapper. Then one of:
     integrate -> Jacobi position solve -> joints -> set_velocities ->
     Jacobi velocity solve in tensor ops.
 
+The broadphase is the all-pairs kernel (``broadphase="kernel"``) or
+the swept tier (``"swept"``, plain PyTorch, the many-body tier); where
+the env registers a ``BroadphaseOverflow`` singleton the node keeps the
+running maximum of the candidates' overflow flag in it.
+
 Each kernel wrapper runs its plain version on a CPU tensor. TGS, the
-Gauss-Seidel oracle, the swept broadphase and the collision-event export
-are not ported; selecting them raises ``NotImplementedError``.
+Gauss-Seidel oracle and the collision-event export are not ported;
+selecting them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -211,7 +216,9 @@ def megakernel_fused_step(body: BodyState, cands: bp.Candidates,
 
 
 NARROWPHASES = ("xla", "kernel_mega", "kernel_sublane", "kernel")
+BROADPHASES = ("kernel", "swept")
 SAT_TIERS = ("edge_dirs", "edge_pairs")
+BROADPHASE_OVERFLOW = "BroadphaseOverflow"
 
 
 def _check_supported(sm: StateManager, cfg: PhysicsConfig,
@@ -219,11 +226,16 @@ def _check_supported(sm: StateManager, cfg: PhysicsConfig,
     later = []
     if cfg.narrowphase not in NARROWPHASES:
         later.append(f"narrowphase={cfg.narrowphase!r}")
-    if cfg.broadphase != "kernel":
+    if cfg.broadphase not in BROADPHASES:
         later.append(f"broadphase={cfg.broadphase!r}")
     if later:
         raise NotImplementedError(
             "not ported yet: " + ", ".join(later)
+        )
+    if cfg.solver != "jacobi":
+        raise NotImplementedError(
+            f"solver={cfg.solver!r} is not ported yet (ROADMAP.md queue A "
+            "item 8: the Gauss-Seidel oracle and TGS)"
         )
     if cfg.sat_tier not in SAT_TIERS:
         raise ValueError(f"sat_tier must be one of {SAT_TIERS}, got "
@@ -306,7 +318,16 @@ def make_physics_node(sm: StateManager, om: ObjectManager,
         if dev not in om_on:
             om_on[dev] = om.to(dev)
         om_d = om_on[dev]
-        cands = find_candidates_kernel(body, om_d, caps, cfg.dt)
+        if cfg.broadphase == "swept":
+            cands = bp.find_candidates_swept(body, om_d, caps, cfg.dt,
+                                             window=cfg.broadphase_window)
+        else:
+            cands = find_candidates_kernel(body, om_d, caps, cfg.dt)
+        if BROADPHASE_OVERFLOW in sm_.singletons:
+            singles = dict(state.singletons)
+            singles[BROADPHASE_OVERFLOW] = torch.maximum(
+                singles[BROADPHASE_OVERFLOW], cands.overflow.to(torch.int32))
+            state = dataclasses.replace(state, singletons=singles)
         jbuf = joints_view(state) if JOINT_BUFFER in sm_.singletons else None
 
         if cfg.megakernel_fused:

@@ -76,9 +76,18 @@ class PhysicsConfig:
     # narrowphase and megakernel
     megakernel_fused: bool = False
     # "kernel": the all-pairs broadphase on its hand-written CUDA kernel
-    # (ops/broadphase_cuda); on a CPU tensor the wrapper runs the plain
-    # version. The only tier of the port so far.
+    # (ops/broadphase_cuda; up to 64 bodies a world); on a CPU tensor the
+    # wrapper runs the plain version. "swept": sort-by-x sweep and prune,
+    # the many-body tier (broadphase.find_candidates_swept, plain
+    # PyTorch: the JAX package runs it in XLA), exact while no world
+    # saturates its window of broadphase_window later bodies
+    # (Candidates.overflow reports it)
     broadphase: str = "kernel"
+    broadphase_window: int = 32
+    # "jacobi": every contact solved against a body snapshot and the
+    # corrections averaged. The JAX package's "gauss_seidel" oracle and
+    # "tgs" are not ported (ROADMAP.md queue A item 8) and raise
+    solver: str = "jacobi"
 
 
 @dataclasses.dataclass

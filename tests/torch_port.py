@@ -303,3 +303,18 @@ def hide_seek_kernel_inputs(env, sim, state):
     state_t, param_t = solver_cuda.pack_state(body, env.om)
     jargs = solver_cuda.pack_joints(t_api.joints_view(state), t_hs.N_BODIES)
     return body, cands, cin, (state_t, param_t, *cargs, *jargs)
+
+
+def assert_trees_equal(a, b, path="state", dtypes=True):
+    """Two numpy trees (dicts of arrays) equal leaf for leaf, bit for
+    bit, dtypes included unless ``dtypes`` is False."""
+    if isinstance(a, dict):
+        assert set(a) == set(b), (path, sorted(a), sorted(b))
+        for k in a:
+            assert_trees_equal(a[k], b[k], f"{path}/{k}", dtypes)
+        return
+    a, b = np.asarray(a), np.asarray(b)
+    if dtypes:
+        assert a.dtype == b.dtype, (path, a.dtype, b.dtype)
+    assert a.shape == b.shape, (path, a.shape, b.shape)
+    np.testing.assert_array_equal(a, b, err_msg=path)
