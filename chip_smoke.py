@@ -159,6 +159,30 @@ Phases, each printing its own lines:
      and destroy totals, the tables' ids, generations, row counts and
      overflow, the entity store) equal at every step, live positions
      within 1e-5, the growth the same.
+ 23. Hanabi (no kernel on its path, every counter 0): 2 players with
+     compact observations at 16,384 worlds x 200 steps, then 5 players
+     with card knowledge at 4096 worlds x 100 steps, through rollout in
+     chunks of 50 steps of random_actions(RandomState(0)): at every step
+     and in every world the info and life tokens in range (their
+     one-hots in the observation hold one 1 each), at least one legal
+     move, the score in [0, 25]; a fresh sim bit-identical; the first 8
+     worlds equal to the port's CPU run of 8 worlds bit for bit (the
+     worlds' Threefry streams depend on the seed and the world alone);
+     env-steps/s and kernel launches a step (torch.profiler);
+ 24. Overcooked, both layouts, at 4096 worlds x 900 steps the same way:
+     the episode clock (steps_taken, done at steps 400 and 800 only),
+     one own and one other agent in every observation, rewards a
+     multiple of 20; a fresh sim bit-identical through the first reset
+     (450 steps); the first 8 worlds equal to the CPU's over all 900;
+     env-steps/s and launches a step;
+ 25. TrainInterface and REINFORCE on Cartpole
+     (examples/torch_train_reinforce.py) at 4096 worlds, 5 updates of 64
+     steps: every exported tensor on the card, a CPU tensor refused by
+     torch_step, the losses finite, the policy's parameters moved, no
+     kernel launched; updates/s;
+ 26. PPO on Overcooked (examples/torch_train_ppo_overcooked.py) at 4096
+     worlds, 3 updates of horizon 64: the losses and parameters finite,
+     the parameters moved, no kernel launched; updates/s.
 
 Any failure raises (non-zero exit). The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -228,6 +252,21 @@ PROJ_STEPS = 40
 PROJ_CAP = 8              # small enough that the spawns overflow it
 PROJ_GROW_AT = 20         # the step after which maybe_grow runs, once
 PROJ_POS_TOL = 1e-5
+HAN_W = 16384             # Hanabi, 2 players, compact observations
+HAN_STEPS = 200
+HAN5_W = 4096             # Hanabi, 5 players, card knowledge
+HAN5_STEPS = 100
+OC_W = 4096               # Overcooked, each layout
+OC_STEPS = 900            # two automatic resets (episodes of 400)
+OC_FRESH_STEPS = 450      # a fresh sim beside it through the first reset
+ENV_CHUNK = 50            # steps a rollout call; each chunk checked alone
+ENV_CPU_W = 8             # the first worlds, run on the CPU beside the card
+PROFILE_STEPS = 5         # steps under torch.profiler for launches a step
+LEARN_W = 4096            # the learners' world count
+REINFORCE_UPDATES = 5
+REINFORCE_HORIZON = 64    # examples/train_torch_reinforce.py's default
+PPO_UPDATES = 3
+PPO_HORIZON = 64          # examples/train_ppo_overcooked.py's default
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor op/s
 PEAK_BYTES = 3.35e12
@@ -2149,6 +2188,236 @@ def check_projectiles(make_sim, Projectiles, kernels, card):
           f"{PROJ_POS_TOL}, no kernel launched ({card})")
 
 
+def launches_per_step(sim, acts, steps=PROFILE_STEPS):
+    """Device events (kernels, copies, fills) a step of ``sim.step``
+    under torch.profiler, over ``steps`` steps of ``acts``; None where
+    the profiler recorded no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    reset = torch.zeros(acts.shape[1], dtype=torch.int32, device=DEV)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for t in range(steps):
+            sim.step({"action": acts[t], "reset": reset})
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type.name == "CUDA"]
+    if not sum(e.self_device_time_total for e in events):
+        return None
+    return sum(e.count for e in events) / steps
+
+
+def check_discrete_env(make_sim, rollout, make_env, w, steps, kernels, card,
+                       what, check_chunk, fresh_steps=None):
+    """Phases 23-24: ``make_env()`` at ``w`` worlds for ``steps`` steps of
+    its random_actions(RandomState(0)) through rollout, ENV_CHUNK steps a
+    call; ``check_chunk(outs, first_step)`` returns {check: bool tensor}
+    for each chunk. A fresh sim runs beside it for the first
+    ``fresh_steps`` (default: all) and must be bit-identical, and the
+    first ENV_CPU_W worlds on the CPU must be equal bit for bit.
+    Returns (env-steps/s over the chunks after the first, launches a
+    step or None)."""
+    import torch
+
+    acts = make_env().random_actions(np.random.RandomState(0), steps, w)
+    zeros = torch.zeros((steps, w), dtype=torch.int32)
+    card_in = {"action": acts.to(DEV), "reset": zeros.to(DEV)}
+    cpu_in = {"action": acts[:, :ENV_CPU_W].contiguous(),
+              "reset": zeros[:, :ENV_CPU_W].contiguous()}
+    fresh_steps = steps if fresh_steps is None else fresh_steps
+    sim, fresh = (make_sim(make_env(), num_worlds=w, seed=0, device=DEV)
+                  for _ in range(2))
+    cpu = make_sim(make_env(), num_worlds=ENV_CPU_W, seed=0, device="cpu")
+    for k in kernels:
+        k.launches = 0
+    secs, timed = 0.0, 0
+    for c0 in range(0, steps, ENV_CHUNK):
+        part = slice(c0, min(c0 + ENV_CHUNK, steps))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = rollout(sim, {k: v[part] for k, v in card_in.items()})
+        torch.cuda.synchronize()
+        if c0:
+            secs += time.perf_counter() - t0
+            timed += part.stop - part.start
+        checks = check_chunk(outs, c0)
+        bad = [name for name, ok in checks.items() if not bool(ok)]
+        if bad:
+            raise AssertionError(f"{what}: steps {c0 + 1}-{part.stop}: "
+                                 f"{bad} failed")
+        again = (rollout(fresh, {k: v[part] for k, v in card_in.items()})
+                 if c0 < fresh_steps else None)
+        small = rollout(cpu, {k: v[part] for k, v in cpu_in.items()})
+        for name, v in outs.items():
+            if again is not None and not torch.equal(v, again[name]):
+                raise AssertionError(f"{what}: {name} differs across fresh "
+                                     f"sims at steps {c0 + 1}-{part.stop}")
+            if not torch.equal(v[:, :ENV_CPU_W].cpu(), small[name]):
+                raise AssertionError(f"{what}: {name} of the first "
+                                     f"{ENV_CPU_W} worlds differs from the "
+                                     f"CPU's at steps {c0 + 1}-{part.stop}")
+        del outs, again
+    launches = [k.launches for k in kernels]
+    if any(launches):
+        raise AssertionError(f"{what}: kernels launched {launches}")
+    per_step = launches_per_step(sim, card_in["action"])
+    rate = w * timed / secs
+    print(f"{what}: {w} worlds x {steps} steps through rollout, checks "
+          f"{sorted(checks)} held at every step, a fresh sim bit-identical "
+          f"over {min(fresh_steps, steps)} steps, "
+          f"the first {ENV_CPU_W} worlds equal to the CPU's bit for bit, no "
+          f"kernel launched; {secs * 1e3 / timed:.3f} ms/step, "
+          f"{rate:.1f} env-steps/s, "
+          + (f"{per_step:.0f} launches/step" if per_step is not None
+             else "launches/step not measured (no device time profiled)")
+          + f" ({card})")
+    return rate, per_step
+
+
+def hanabi_checks(players):
+    """check_chunk for Hanabi: tokens in range, a legal move, the score."""
+    from madrona_tpu_torch.models import hanabi as H
+
+    info0 = H.N_COLORS * (H.N_RANKS + 1)
+    lives0 = info0 + H.MAX_INFO + 1
+
+    def check(outs, first_step):
+        obs = outs["obs"]
+        return {
+            "info token in [0, 8]":
+                (obs[..., info0:lives0].sum(-1) == 1).all(),
+            "life tokens in [0, 3]":
+                (obs[..., lives0:lives0 + H.MAX_LIVES + 1].sum(-1) == 1
+                 ).all(),
+            "a legal move": (outs["legal_moves"].sum(-1) >= 1).all(),
+            "score in [0, 25]": ((outs["score"] >= 0)
+                                 & (outs["score"] <= 25)).all(),
+            "cur_player in range": ((outs["cur_player"] >= 0)
+                                    & (outs["cur_player"] < players)).all(),
+        }
+    return check
+
+
+def overcooked_checks(outs, first_step):
+    """check_chunk for Overcooked: the episode clock, the agents in the
+    observation, the rewards."""
+    import torch
+    from madrona_tpu_torch.models import overcooked as OC
+
+    t = torch.arange(first_step, first_step + outs["done"].shape[0],
+                     device=outs["done"].device)[:, None]
+    clock = t % OC.EPISODE_LEN + 1
+    obs = outs["obs"]                               # [T, W, 2, H, W, 16]
+    return {
+        "steps_taken is the episode clock":
+            (outs["steps_taken"] == clock).all(),
+        "done only at the episode's end":
+            (outs["done"] == (clock == OC.EPISODE_LEN).int()).all(),
+        "one own and one other agent":
+            ((obs[..., 0].sum((-1, -2)) == 1)
+             & (obs[..., 5].sum((-1, -2)) == 1)).all(),
+        "reward a multiple of 20": ((outs["reward"] >= 0)
+                                    & (outs["reward"] % 20 == 0)).all(),
+        "deliveries >= 0": (outs["deliveries"] >= 0).all(),
+    }
+
+
+def check_reinforce(make_sim, Cartpole, TrainInterface, reinforce, kernels,
+                    card):
+    """Phase 25: TrainInterface and the REINFORCE learner on the card."""
+    import torch
+
+    torch.manual_seed(0)
+    sim = make_sim(Cartpole(), num_worlds=LEARN_W, seed=0, device=DEV)
+    ti = TrainInterface(sim)
+    policy = reinforce.make_policy(sim.device)
+    before = [p.detach().clone() for p in policy.parameters()]
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ep_len, losses = reinforce.train(ti, policy, REINFORCE_UPDATES,
+                                     REINFORCE_HORIZON, log_every=0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    outs = ti.step_outputs
+    off = [k for k, v in outs.items()
+           if v.device.type != torch.device(DEV).type]
+    if off:
+        raise AssertionError(f"train interface: exports off the card {off}")
+    other = "cpu" if DEV != "cpu" else "meta"   # "meta" in CPU rehearsals
+    try:
+        ti.torch_step(action=torch.zeros(LEARN_W, dtype=torch.int32,
+                                         device=other),
+                      reset=torch.zeros(LEARN_W, dtype=torch.int32,
+                                        device=DEV))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError(f"train interface: an input on {other} was "
+                             "accepted")
+    losses = torch.stack(losses).cpu()
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"reinforce: losses {losses.tolist()}")
+    moved = max(float((a.detach() - b).abs().max())
+                for a, b in zip(policy.parameters(), before))
+    if not moved > 0:
+        raise AssertionError("reinforce: the parameters did not move")
+    launches = [k.launches for k in kernels]
+    if any(launches):
+        raise AssertionError(f"reinforce: kernels launched {launches}")
+    print(f"train interface + REINFORCE on cartpole: {LEARN_W} worlds, "
+          f"{REINFORCE_UPDATES} updates of {REINFORCE_HORIZON} steps, "
+          f"exports {sorted(outs)} on {outs['obs'].device}, an input on "
+          f"{other} refused, losses {[round(x, 4) for x in losses.tolist()]}, "
+          f"parameters moved by up to {moved:.4g}, episode length "
+          f"{ep_len:.1f}; {REINFORCE_UPDATES / secs:.3f} updates/s "
+          f"({card})")
+
+
+def check_ppo_overcooked(ppo, ppo_oc, kernels, card):
+    """Phase 26: PPO on Overcooked on the card."""
+    import torch
+
+    cfg = dataclasses.replace(ppo.PPOConfig(), horizon=PPO_HORIZON,
+                              ent_coef=0.02, lr=5e-4)
+    sim, pi, v, obs_of = ppo_oc.make_train(LEARN_W, cfg, seed=0, device=DEV)
+    gen = ppo.generator(7, sim.device)
+    params = list(pi.parameters()) + list(v.parameters())
+    before = [p.detach().clone() for p in params]
+    step_fn = sim.step_fn()
+    state = sim.state
+    for k in kernels:
+        k.launches = 0
+    losses, secs = [], 0.0
+    for u in range(PPO_UPDATES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, frames = ppo.update(step_fn, state, pi, v, gen, cfg, obs_of,
+                                   keep=("deliveries",))
+        torch.cuda.synchronize()
+        if u:
+            secs += time.perf_counter() - t0
+        losses += frames["losses"]
+    losses = torch.stack(losses).cpu()
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"ppo overcooked: losses {losses.tolist()}")
+    if not all(torch.isfinite(p).all() for p in params):
+        raise AssertionError("ppo overcooked: parameters not finite")
+    moved = max(float((a.detach() - b).abs().max()) for a, b in zip(params, before))
+    if not moved > 0:
+        raise AssertionError("ppo overcooked: the parameters did not move")
+    launches = [k.launches for k in kernels]
+    if any(launches):
+        raise AssertionError(f"ppo overcooked: kernels launched {launches}")
+    print(f"PPO on overcooked: {LEARN_W} worlds, {PPO_UPDATES} updates of "
+          f"horizon {PPO_HORIZON} on {frames['obs'].device}, losses finite "
+          f"(last {float(losses[-1]):.4f}), parameters moved by up to "
+          f"{moved:.4g}; {(PPO_UPDATES - 1) / secs:.3f} updates/s after the "
+          f"first ({card})")
+
+
 def main() -> int:
     import torch
 
@@ -2156,12 +2425,19 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    sys.path.insert(0, os.path.join(HERE, "examples"))
     from madrona_tpu_torch import make_sim, rollout
+    from madrona_tpu_torch.interop import TrainInterface
     from madrona_tpu_torch.models.cartpole import Cartpole
     from madrona_tpu_torch.models.escape_room import EscapeRoom
+    from madrona_tpu_torch.models.hanabi import Hanabi
     from madrona_tpu_torch.models.hide_seek import HideSeek
+    from madrona_tpu_torch.models.overcooked import Overcooked
     from madrona_tpu_torch.models.pile import Pile
     from madrona_tpu_torch.models.projectiles import Projectiles
+    import torch_train_ppo
+    import torch_train_ppo_overcooked
+    import torch_train_reinforce
     from madrona_tpu_torch.ops import (
         broadphase_cuda, contacts_cuda, cuda_build, fused_cuda,
         hh_narrowphase_cuda, lidar_cuda, raycast_cuda, solver_cuda,
@@ -2707,6 +2983,33 @@ def main() -> int:
     print("many-body tier and ECS envs, ms/step: " + ", ".join(
         f"pile {w} worlds {v:.2f}" for w, v in pile_ms.items())
         + f", cartpole {CART_W} worlds {cart_ms:.3f} ({card})")
+
+    # ---- 23-26: Hanabi, Overcooked and the learners; no kernel on these
+    # paths, every counter must stay at 0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rates = {
+        "hanabi 2p compact": check_discrete_env(
+            make_sim, rollout, Hanabi, HAN_W, HAN_STEPS, all_k, card,
+            "hanabi 2 players compact", hanabi_checks(2)),
+        "hanabi 5p card_knowledge": check_discrete_env(
+            make_sim, rollout, lambda: Hanabi(5, "card_knowledge"), HAN5_W,
+            HAN5_STEPS, all_k, card, "hanabi 5 players card_knowledge",
+            hanabi_checks(5)),
+    }
+    for layout in ("cramped_room", "asymmetric_advantages"):
+        rates[f"overcooked {layout}"] = check_discrete_env(
+            make_sim, rollout, functools.partial(Overcooked, layout), OC_W,
+            OC_STEPS, all_k, card, f"overcooked {layout}",
+            overcooked_checks, fresh_steps=OC_FRESH_STEPS)
+    check_reinforce(make_sim, Cartpole, TrainInterface,
+                    torch_train_reinforce, all_k, card)
+    check_ppo_overcooked(torch_train_ppo, torch_train_ppo_overcooked, all_k,
+                         card)
+    print("hanabi, overcooked and the learners: "
+          f"{time.perf_counter() - t0:.1f} s; env-steps/s, launches/step: "
+          + ", ".join(f"{k} {r:.1f}, {n}" for k, (r, n) in rates.items())
+          + f" ({card})")
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

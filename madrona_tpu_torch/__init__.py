@@ -2,9 +2,10 @@
 
 Batch simulation of thousands of ECS worlds in lockstep on one NVIDIA
 H100: the same ECS core (node kinds, entity lifecycle), taskgraph, XPBD
-physics (the all-pairs and swept broadphase tiers), batch raycaster and
-Escape Room, Hide & Seek, Pile, Cartpole and Projectiles envs as the JAX
-package beside it, written as plain PyTorch on tensors, with
+physics (the all-pairs and swept broadphase tiers), batch raycaster,
+Escape Room, Hide & Seek, Pile, Cartpole, Projectiles, Hanabi and
+Overcooked envs and learner interface (``interop.TrainInterface``) as
+the JAX package beside it, written as plain PyTorch on tensors, with
 the TPU's Pallas kernels replaced by CUDA C++ kernels written by hand
 (``csrc/``, bound through ctypes in ``ops/``).
 

@@ -17,6 +17,10 @@ The render tables cross the same way: :func:`blas_from_numpy`,
 fields of the JAX package's ``BlasTables``, ``MaterialTables`` and
 ``Lights`` as a mapping of numpy arrays (by field name) and give the
 port's tables on a named device.
+
+:class:`TrainInterface` is the learner's side: the named step inputs
+and outputs of a sim, stepped from torch tensors on the sim's own
+device (the JAX package's dlpack hops are the identity here).
 """
 
 from __future__ import annotations
@@ -118,3 +122,44 @@ def lights_from_numpy(tree, device):
     from .render.lights import Lights
 
     return _table(Lights, tree, device)
+
+
+@dataclasses.dataclass
+class TrainInterface:
+    """Named step inputs and outputs of a sim, for a torch learner.
+
+    ``step_inputs`` maps each imported slot to ``((W, *shape), dtype)``,
+    ``step_outputs`` the exports of the current state. ``torch_step``
+    steps the sim with the learner's tensors, which must lie on the
+    sim's device (another device raises; nothing is moved), and returns
+    the exported tensors: the state's own tensors, with no copy."""
+
+    sim: object
+
+    @property
+    def step_inputs(self):
+        sm = self.sim.executor.sm
+        w = self.sim.executor.num_worlds
+        out = {}
+        for slot, name in sm.singleton_imports.items():
+            spec = sm.singletons[name]
+            out[slot] = ((w,) + tuple(spec.shape), spec.dtype)
+        for slot, (arch, comp) in sm.imports.items():
+            spec = sm.components[comp]
+            out[slot] = ((w, sm.archetypes[arch].capacity) + tuple(spec.shape),
+                         spec.dtype)
+        return out
+
+    @property
+    def step_outputs(self):
+        return self.sim.executor.sm.collect_exports(self.sim.state)
+
+    def torch_step(self, **inputs):
+        for slot, v in inputs.items():
+            if not torch.is_tensor(v):
+                raise TypeError(f"{slot}: expected a tensor on "
+                                f"{self.sim.device}, got {type(v).__name__}")
+            if v.device != self.sim.device:
+                raise ValueError(f"{slot}: on {v.device}, the sim is on "
+                                 f"{self.sim.device}")
+        return self.sim.step(inputs)

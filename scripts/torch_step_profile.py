@@ -9,8 +9,9 @@ Seek with 64 x 64 pixels through its ("step", "render") launch, 1024
 worlds), ``hide_seek_blas`` (the same through the mesh-BVH render tier,
 ``render_tier="blas"``: materials, the sun and its shadow),
 ``hide_seek_state`` (state only, 16384 worlds), ``pile`` (256 bodies a
-world through the swept broadphase, 64 worlds) or ``cartpole`` (16384
-worlds). Prints, for
+world through the swept broadphase, 64 worlds), ``cartpole`` (16384
+worlds), ``hanabi`` (2 players, compact observations, 16384 worlds) or
+``overcooked`` (cramped_room, 4096 worlds). Prints, for
 make_sim(env, worlds) on the card after a warm-up:
   * the card's name and power limit;
   * the unfenced step time (host clock around `steps` steps ending in a
@@ -40,7 +41,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from madrona_tpu_torch import make_sim                      # noqa: E402
 from madrona_tpu_torch.models.cartpole import Cartpole      # noqa: E402
 from madrona_tpu_torch.models.escape_room import EscapeRoom  # noqa: E402
+from madrona_tpu_torch.models.hanabi import Hanabi          # noqa: E402
 from madrona_tpu_torch.models.hide_seek import HideSeek     # noqa: E402
+from madrona_tpu_torch.models.overcooked import Overcooked  # noqa: E402
 from madrona_tpu_torch.models.pile import Pile              # noqa: E402
 from madrona_tpu_torch.utils import rng as _rng             # noqa: E402
 
@@ -54,6 +57,8 @@ ENVS = {
     "hide_seek_state": (lambda: HideSeek(pixels=False), 16384),
     "pile": (Pile, 64),
     "cartpole": (Cartpole, 16384),
+    "hanabi": (Hanabi, 16384),
+    "overcooked": (Overcooked, 4096),
 }
 
 

@@ -1,7 +1,8 @@
 """Import boundary of the PyTorch port.
 
-madrona_tpu_torch, chip_smoke.py and the port's scripts
-(scripts/torch_*.py; chip_smoke.py loads two) run on machines without
+madrona_tpu_torch, chip_smoke.py, the port's scripts
+(scripts/torch_*.py; chip_smoke.py loads two) and its learners
+(examples/torch_*.py; chip_smoke.py loads them too) run on machines without
 JAX: no module of theirs may import jax or anything of the JAX package
 (madrona_tpu), not even a numpy-only module; nor triton, which no kernel
 of the port uses and the CPU machines lack. Checked by parsing every
@@ -17,7 +18,8 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 SOURCES = sorted((ROOT / "madrona_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"
-] + sorted((ROOT / "scripts").glob("torch_*.py"))
+] + sorted((ROOT / "scripts").glob("torch_*.py")) + sorted(
+    (ROOT / "examples").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "madrona_tpu", "triton")
 
 
@@ -56,7 +58,9 @@ def test_package_import_leaves_jax_out():
         "madrona_tpu_torch.models.pile, madrona_tpu_torch.models.cartpole, "
         "madrona_tpu_torch.models.projectiles, "
         "madrona_tpu_torch.ops.lifecycle, madrona_tpu_torch.graph.executor, "
-        "madrona_tpu_torch.physics.broadphase; "
+        "madrona_tpu_torch.physics.broadphase, "
+        "madrona_tpu_torch.models.hanabi, "
+        "madrona_tpu_torch.models.overcooked; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]; "
         "print(bad); sys.exit(1 if bad else 0)"
