@@ -84,7 +84,9 @@ Phases, each printing its own lines:
      as phase 13 does; and, with the raycast library and the compiler
      taken away, a BLAS-tier render step raises;
  14. the physics tiers of this slice at full width, 20 steps of seeded
-     random actions each, every kernel's launches counted: Escape Room
+     random actions each, every kernel's launches counted (the record
+     kernel's also by SAT tier, so that B6 and B7 are told apart by
+     what ran, not by the config): Escape Room
      with megakernel_fused (B1, B8, B4 once per step; no B2, B3), Hide &
      Seek state only with it (B1, B8), Escape Room with narrowphase=
      "kernel_sublane" (B1, B6, B3, B4) and "kernel" (B1, B7, B3, B4);
@@ -125,12 +127,12 @@ Phases, each printing its own lines:
  18. the many-body tier at bench.py's pile point: make_sim(Pile(), 64
      worlds) (256 bodies a world, the swept broadphase, the narrowphase
      at every substep, plain PyTorch: no hand-written kernel runs on this
-     path) for 100 steps of Pile.random_actions(RandomState(0)): exports
+     path) for 60 steps of Pile.random_actions(RandomState(0)): exports
      finite at every step and of the expected shapes, none of the seven
      kernels launched, a fresh sim bit-identical over 20 steps, ms/step
      and env-steps/s; summary[:, 5] (the broadphase overflow flag) never
      falls, and the worlds where the shakes set it are printed (the JAX
-     package sets it from step 33 on the same inputs); then 100 steps
+     package sets it from step 33 on the same inputs); then 60 steps
      without shakes, where the flag must stay 0 in every world (as it
      does in the JAX package); then 12 steps at 1024 worlds;
  19. the swept broadphase against the broadphase kernel (B1) on real
@@ -169,12 +171,12 @@ Phases, each printing its own lines:
      worlds equal to the port's CPU run of 8 worlds bit for bit (the
      worlds' Threefry streams depend on the seed and the world alone);
      env-steps/s and kernel launches a step (torch.profiler);
- 24. Overcooked, both layouts, at 4096 worlds x 900 steps the same way:
-     the episode clock (steps_taken, done at steps 400 and 800 only),
-     one own and one other agent in every observation, rewards a
-     multiple of 20; a fresh sim bit-identical through the first reset
-     (450 steps); the first 8 worlds equal to the CPU's over all 900;
-     env-steps/s and launches a step;
+ 24. Overcooked, both layouts, at 4096 worlds x 450 steps the same way:
+     the episode clock (steps_taken, done at step 400 only), one own
+     and one other agent in every observation, rewards a multiple of
+     20; a fresh sim bit-identical through the reset (450 steps); the
+     first 8 worlds equal to the CPU's over all 450; env-steps/s and
+     launches a step;
  25. TrainInterface and REINFORCE on Cartpole
      (examples/torch_train_reinforce.py) at 4096 worlds, 5 updates of 64
      steps: every exported tensor on the card, a CPU tensor refused by
@@ -183,6 +185,40 @@ Phases, each printing its own lines:
  26. PPO on Overcooked (examples/torch_train_ppo_overcooked.py) at 4096
      worlds, 3 updates of horizon 64: the losses and parameters finite,
      the parameters moved, no kernel launched; updates/s.
+ 27. the CollisionEvents export (events_scene: eight boxes, pressed in
+     pairs, dropped onto a plane; 16 event slots) at 4096 worlds for 60
+     steps on broadphase="pallas" (B1), narrowphase="kernel_sublane"
+     (B6) and megakernel=True (B3), each launched once a step and no
+     other kernel; the singleton's invariants at every step (counts,
+     the clamp flag, live slots naming two live rows with their entity
+     handles, the rest -1); the export alone makes no host sync (torch's
+     sync debug mode raises on one); ms, device events and device busy
+     share a step, and the export's share of the step; 8 worlds carried
+     to the CPU after steps 20 and 40, one step on both: every integer of the
+     singleton equal, except in a world where a contact lane is live on
+     one side only with a depth within 1e-5 of zero there (a witness),
+     and the body state within the golden bounds (phase 20's rule);
+ 28. Escape Room at solver="tgs" with narrowphase="kernel_sublane",
+     4096 worlds x 100 steps of random actions: B1 and B4 once a step,
+     B6 at each of the 4 substeps, no other kernel; exports finite and
+     both agents on the floor (0.4 < z < 1.2) at every step; ms, device
+     events and busy share a step; 8 worlds after step 50 carried to
+     the CPU, one step within the golden bounds (phase 20's rule);
+ 29. the box stack with a sphere and joints (stack_scene, the
+     Gauss-Seidel and TGS tests' scene) at solver="gauss_seidel", 1024
+     worlds x 30 steps: B1 once a step, no other kernel; positions
+     finite; ms, device events and busy share a step; 8 worlds after
+     steps 10 and 20 carried to the CPU, one step within the golden
+     bounds (phase 20's rule);
+ 30. physics/query.py and physics/gjk.py on the main path's Escape Room
+     state (4096 worlds): raycast_bodies for 2 agents x 30 rays (each
+     agent's own row excluded), card against CPU over every world (hit
+     rows equal, t within 1e-5 relative), and hull_hull_distance2 for
+     every pair of hull rows (190 a world) on the card, held against the
+     CPU on the first 256 worlds (within 1e-5 relative); ms a call.
+     The JSON line's rows carry "launches_by_path": each kernel's
+     launches on the paths of phases 27-29, B6's and B7's from the
+     record kernel's tier counts.
 
 Any failure raises (non-zero exit). The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -229,7 +265,7 @@ PLAIN_PHYSICS_ITERS = 3   # the plain contacts/solver take ~0.1 s a call
 # the many-body tier and the ECS envs (phases 18-22)
 PILE_W = 64               # bench.py's pile point: 256 bodies, 64 worlds
 PILE_BIG_W = 1024
-PILE_STEPS = 100
+PILE_STEPS = 60
 PILE_SAME_STEPS = 20      # steps a fresh sim is compared over, bit for bit
 PILE_BIG_STEPS = 12
 PILE_SMALL_BODIES = 48    # 53 rows: inside the broadphase kernel's 64
@@ -257,8 +293,8 @@ HAN_STEPS = 200
 HAN5_W = 4096             # Hanabi, 5 players, card knowledge
 HAN5_STEPS = 100
 OC_W = 4096               # Overcooked, each layout
-OC_STEPS = 900            # two automatic resets (episodes of 400)
-OC_FRESH_STEPS = 450      # a fresh sim beside it through the first reset
+OC_STEPS = 450            # through the automatic reset (episodes of 400)
+OC_FRESH_STEPS = 450      # a fresh sim beside it through the reset
 ENV_CHUNK = 50            # steps a rollout call; each chunk checked alone
 ENV_CPU_W = 8             # the first worlds, run on the CPU beside the card
 PROFILE_STEPS = 5         # steps under torch.profiler for launches a step
@@ -267,6 +303,24 @@ REINFORCE_UPDATES = 5
 REINFORCE_HORIZON = 64    # examples/train_torch_reinforce.py's default
 PPO_UPDATES = 3
 PPO_HORIZON = 64          # examples/train_ppo_overcooked.py's default
+EV_W = 4096               # the events export: eight boxes onto a plane
+EV_STEPS = 60
+EV_MAX_EVENTS = 16
+EV_CAPS = (16, 8, 0)      # hull-hull, hull-plane, sphere candidates
+EV_PUSH = 5.0             # N pressing each pair of boxes together
+EV_CHECK_AT = (20, 40)    # steps after which 8 worlds go to the CPU
+EV_DEPTH_MARGIN = 1e-5    # a contact this near zero depth may flip
+TGS_W = 4096              # Escape Room at solver="tgs"
+TGS_STEPS = 100
+TGS_CHECK_AT = (50,)
+GS_W = 1024               # the box stack at solver="gauss_seidel"
+GS_STEPS = 30
+GS_CHECK_AT = (10, 20)
+CHECK_WORLDS = (0, 1, 2, 3, 4, 5, 6, 7)
+MAX_WITNESSED = 2         # checks of a phase that may need a witness
+QUERY_RAYS = 30           # rays an agent for raycast_bodies
+QUERY_CPU_W = 256         # worlds of the GJK check run again on the CPU
+GJK_TOL = 1e-5            # card vs CPU, squared distance, relative
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor op/s
 PEAK_BYTES = 3.35e12
@@ -2188,24 +2242,37 @@ def check_projectiles(make_sim, Projectiles, kernels, card):
           f"{PROJ_POS_TOL}, no kernel launched ({card})")
 
 
+def device_profile(run, calls=PROFILE_STEPS):
+    """(device events (kernels, copies, fills) a call, device ms a call)
+    of ``run()`` under torch.profiler over ``calls`` calls; (None, None)
+    where the profiler recorded no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type.name == "CUDA"]
+    busy_us = sum(e.self_device_time_total for e in events)
+    if not busy_us:
+        return None, None
+    return sum(e.count for e in events) / calls, busy_us / 1e3 / calls
+
+
 def launches_per_step(sim, acts, steps=PROFILE_STEPS):
     """Device events (kernels, copies, fills) a step of ``sim.step``
     under torch.profiler, over ``steps`` steps of ``acts``; None where
     the profiler recorded no device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     reset = torch.zeros(acts.shape[1], dtype=torch.int32, device=DEV)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for t in range(steps):
-            sim.step({"action": acts[t], "reset": reset})
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type.name == "CUDA"]
-    if not sum(e.self_device_time_total for e in events):
-        return None
-    return sum(e.count for e in events) / steps
+    it = iter(range(steps))
+    return device_profile(
+        lambda: sim.step({"action": acts[next(it)], "reset": reset}),
+        steps)[0]
 
 
 def check_discrete_env(make_sim, rollout, make_env, w, steps, kernels, card,
@@ -2418,6 +2485,617 @@ def check_ppo_overcooked(ppo, ppo_oc, kernels, card):
           f"first ({card})")
 
 
+# ---------------------------------------------------------------------------
+# Phases 27-30: the physics toolkit's paths
+
+
+STACK_CAPS = (2, 4, 4)    # box-box; box-plane x2; sphere-plane, sphere-box x2
+
+
+def stack_arrays(w, seed=0):
+    """numpy rows of the box stack with a sphere (phase 29 and the
+    Gauss-Seidel and TGS tests): a static plane, two boxes (z 0.6 and
+    1.58), a sphere dropped from z 3.0 onto them off center, the stack
+    moved as one per world; (pos, rot, vel) [w, 4, ...], and the joints:
+    a fixed joint between the boxes in the odd worlds (slot 0), a hinge
+    about y in the even worlds (slot 1), each holding the boxes face to
+    face."""
+    rs = np.random.RandomState(seed)
+    pos = np.zeros((w, 4, 3), np.float32)
+    pos[:, 1] = [0, 0, 0.6]
+    pos[:, 2] = [0, 0, 1.58]
+    pos[:, 3] = [0.1, 0, 3.0]
+    pos[:, 1:, :2] += rs.uniform(-0.5, 0.5, (w, 1, 2)).astype(np.float32)
+    pos[:, 3, :2] += rs.uniform(-0.2, 0.2, (w, 2)).astype(np.float32)
+    rot = np.zeros((w, 4, 4), np.float32)
+    rot[..., 0] = 1
+    vel = np.zeros((w, 4, 3), np.float32)
+    vel[:, 3] = rs.uniform(-0.3, 0.3, (w, 3)).astype(np.float32)
+    odd = np.arange(w) % 2 == 1
+    f32 = lambda *v: np.array(v, np.float32)   # noqa: E731
+    joints = (
+        ("fixed", dict(slot=0, e1=1, e2=2, attach_q1=f32(1, 0, 0, 0),
+                       attach_q2=f32(1, 0, 0, 0), r1=f32(0, 0, 0.5),
+                       r2=f32(0, 0, -0.5), separation=0.0, worlds=odd)),
+        ("hinge", dict(slot=1, e1=1, e2=2, a1_local=f32(0, 1, 0),
+                       a2_local=f32(0, 1, 0), r1=f32(0, 0, 0.5),
+                       r2=f32(0, 0, -0.5), worlds=~odd)),
+    )
+    return pos, rot, vel, joints
+
+
+def body_values(arr, pos, rot, vel, obj, resp):
+    """The RigidBody component values of make_entities from numpy rows,
+    ``arr`` making each array a tensor of the package."""
+    z3 = np.zeros_like(pos)
+    return {
+        "Position": arr(pos), "Rotation": arr(rot),
+        "Scale": arr(np.ones_like(pos)), "ObjectID": arr(obj),
+        "ResponseType": arr(resp),
+        "Velocity": {"linear": arr(vel), "angular": arr(z3)},
+        "ExternalForce": arr(z3), "ExternalTorque": arr(z3),
+        "SubstepPrev": {"x": arr(pos), "q": arr(rot)},
+        "PreSolvePositional": {"x": arr(pos), "q": arr(rot)},
+        "PreSolveVelocity": {"v": arr(z3), "omega": arr(z3)},
+    }
+
+
+def physics_executor(cfg, caps, w, device, n_bodies, objects, max_joints=0,
+                     max_events=0):
+    """(executor, ObjectManager) of a scene that is only the physics
+    node: ``objects(registry, geo)`` registers the object types."""
+    from madrona_tpu_torch.core.registry import ECSRegistry
+    from madrona_tpu_torch.core.state import StateManager
+    from madrona_tpu_torch.graph.builder import TaskGraphBuilder
+    from madrona_tpu_torch.graph.executor import Executor
+    from madrona_tpu_torch.physics import api as papi
+    from madrona_tpu_torch.physics import bodies, geo
+
+    sm = StateManager()
+    reg = ECSRegistry(sm)
+    papi.register_types(reg, max_bodies=n_bodies)
+    if max_joints:
+        papi.register_joint_types(reg, max_joints=max_joints)
+    if max_events:
+        papi.register_collision_events(reg, max_events=max_events)
+        reg.export_singleton(papi.COLLISION_EVENTS, "events")
+    om_r = bodies.ObjectRegistry()
+    objects(om_r, geo)
+    om = om_r.build()
+    b = TaskGraphBuilder(sm, "step")
+    papi.setup_physics_step_tasks(b, om, cfg, caps)
+    return Executor(sm, {"step": b.build()}, num_worlds=w, seed=0,
+                    device=device), om
+
+
+def stack_scene(cfg, w, device, seed=0):
+    """The box stack with a sphere in the port: (executor, ObjectManager,
+    CandidateCaps) with the state of stack_arrays(w, seed)."""
+    import torch
+    from madrona_tpu_torch.physics import api as papi
+    from madrona_tpu_torch.physics import bodies
+    from madrona_tpu_torch.physics import joints as jt
+    from madrona_tpu_torch.physics.broadphase import CandidateCaps
+
+    def objects(reg, geo):
+        reg.add_hull(geo.box_hull((0.5, 0.5, 0.5)), mass=1.0)      # 0
+        reg.add_plane()                                            # 1
+        reg.add_sphere(0.5, mass=1.0)                              # 2
+
+    caps = CandidateCaps(*STACK_CAPS)
+    ex, om = physics_executor(cfg, caps, w, device, 4, objects, max_joints=2)
+    pos, rot, vel, joints = stack_arrays(w, seed)
+    obj = np.tile([1, 0, 0, 2], (w, 1)).astype(np.int32)
+    resp = np.tile([bodies.RESPONSE_STATIC] + [bodies.RESPONSE_DYNAMIC] * 3,
+                   (w, 1)).astype(np.int32)
+    arr = lambda a: torch.from_numpy(a).to(device)   # noqa: E731
+    state, _ = ex.sm.make_entities(
+        ex.state, papi.RIGID_BODY, body_values(arr, pos, rot, vel, obj, resp),
+        torch.ones((w, 4), dtype=torch.bool, device=device))
+    buf = papi.joints_view(state)
+    for kind, kw in joints:
+        make = jt.make_fixed_joint if kind == "fixed" else jt.make_hinge_joint
+        buf = make(buf, **kw)
+    ex.state = papi.write_joints(state, buf)
+    return ex, om, caps
+
+
+def events_objects(reg, geo):
+    """Register the events scene's object types in either package's
+    ObjectRegistry: a unit box that turns about z only, as the Escape
+    Room's agents do (0), and the plane (1)."""
+    reg.add_hull(geo.box_hull((0.5, 0.5, 0.5)), mass=1.0,
+                 inertia_diag=np.array([np.inf, np.inf, 1.0 / 6.0],
+                                       np.float32))
+    reg.add_plane()
+
+
+def events_arrays(w, seed=0):
+    """numpy rows of the events scene (phase 27 and the CollisionEvents
+    test): a static plane and four pairs of boxes side by side, dropped
+    from z 0.6-1.2 onto the plane and pushed into each other by a
+    constant external force of EV_PUSH along x (ExternalForce is the
+    env's, kept across steps), so the pairs hold hull-hull contacts;
+    jittered by up to 0.05, turned about z by up to 0.2 rad. Returns
+    (pos, rot, vel, force, obj, resp) [w, 9, ...]."""
+    from madrona_tpu_torch.physics import bodies
+
+    rs = np.random.RandomState(seed)
+    grid = np.array([[x + dx, y, 0.6 + 0.2 * k] for k, (x, y) in enumerate(
+        (x, y) for y in (-1.5, 1.5) for x in (-1.6, 1.6))
+        for dx in (-0.52, 0.52)], np.float32)
+    pos = np.zeros((w, 9, 3), np.float32)
+    pos[:, 1:] = grid + rs.uniform(-0.05, 0.05, (w, 8, 3))
+    half = rs.uniform(-0.1, 0.1, (w, 8))
+    rot = np.zeros((w, 9, 4), np.float32)
+    rot[..., 0] = 1
+    rot[:, 1:, 0] = np.cos(half)
+    rot[:, 1:, 3] = np.sin(half)
+    vel = np.zeros((w, 9, 3), np.float32)
+    force = np.zeros((w, 9, 3), np.float32)
+    force[:, 1::2, 0] = EV_PUSH
+    force[:, 2::2, 0] = -EV_PUSH
+    obj = np.tile([1] + [0] * 8, (w, 1)).astype(np.int32)
+    resp = np.tile([bodies.RESPONSE_STATIC] + [bodies.RESPONSE_DYNAMIC] * 8,
+                   (w, 1)).astype(np.int32)
+    return pos, rot, vel, force, obj, resp
+
+
+def events_scene(w, device, seed=0, max_events=EV_MAX_EVENTS):
+    """Phase 27's scene (events_arrays) through the entity store. The
+    boxes turn about z only: with contacts frozen for a step
+    (narrowphase_once, which the export needs), a box that can tip is
+    thrown up by a hull-hull contact, in the JAX package as in the port.
+    Broadphase "pallas" (B1), narrowphase "kernel_sublane" (B6),
+    megakernel (B3), CollisionEvents of ``max_events`` slots. Returns
+    (executor, ObjectManager, config, entity handles [w, 9, 2])."""
+    import torch
+    from madrona_tpu_torch.physics import api as papi
+    from madrona_tpu_torch.physics.broadphase import CandidateCaps
+    from madrona_tpu_torch.physics.xpbd import PhysicsConfig
+
+    cfg = PhysicsConfig(narrowphase_once=True, megakernel=True,
+                        broadphase="pallas", narrowphase="kernel_sublane",
+                        jacobi_iters=1)
+    ex, om = physics_executor(cfg, CandidateCaps(*EV_CAPS), w, device, 9,
+                              events_objects, max_events=max_events)
+    pos, rot, vel, force, obj, resp = events_arrays(w, seed)
+    arr = lambda a: torch.from_numpy(a).to(device)   # noqa: E731
+    values = body_values(arr, pos, rot, vel, obj, resp)
+    values["ExternalForce"] = arr(force)
+    ex.state, ents = ex.sm.make_entities(
+        ex.state, papi.RIGID_BODY, values,
+        torch.ones((w, 9), dtype=torch.bool, device=device))
+    return ex, om, cfg, ents
+
+
+def nudged(state, f):
+    """``state`` with every body position scaled by ``f``."""
+    from madrona_tpu_torch.physics import api as papi
+
+    t_rb = state.tables[papi.RIGID_BODY]
+    cols = dict(t_rb.columns)
+    cols["Position"] = cols["Position"] * f
+    return dataclasses.replace(state, tables={
+        **state.tables, papi.RIGID_BODY: dataclasses.replace(t_rb,
+                                                             columns=cols)})
+
+
+def body_vs_cpu(what, t, card_next, cpu_fn, start, inp, worst, witnessed):
+    """The card's body state after one step against the CPU's from the
+    same state ``start`` (phase 20's rule): within the golden bounds, or
+    outside one only where the CPU itself, from the state with every
+    position scaled by 1 +- 1e-7, is outside it at the same (world,
+    body). Returns the CPU's next state."""
+    p_next = cpu_fn(start, inp)[0]
+    got, ref = body_tree(card_next), body_tree(p_next)
+    for k in GOLDEN:
+        worst[k] = max(worst[k], float((got[k] - ref[k]).abs().max()))
+    off = outside_golden(got, ref)
+    if off:
+        wit = {}
+        for f in PILE_NUDGES:
+            for k, (mask, _) in outside_golden(
+                    body_tree(cpu_fn(nudged(start, f), inp)[0]), ref).items():
+                wit[k] = wit[k] | mask if k in wit else mask
+        for k, (mask, d) in off.items():
+            if k not in wit or bool((mask & ~wit[k]).any()):
+                raise AssertionError(f"{what} card vs CPU step {t}: {k} off "
+                                     f"by {d} with no witness")
+        witnessed.append((t, {k: d for k, (_, d) in off.items()}))
+    return p_next
+
+
+def frozen_contacts(ex, om, cfg, state):
+    """The contacts the physics node freezes for a step of ``state``
+    (broadphase, predicted poses, the narrowphase of cfg's tier)."""
+    from madrona_tpu_torch.ops.broadphase_cuda import find_candidates_kernel
+    from madrona_tpu_torch.physics import api as papi
+    from madrona_tpu_torch.physics import xpbd
+    from madrona_tpu_torch.physics.broadphase import CandidateCaps
+
+    body = papi.body_state(ex.sm, state)
+    om_d = om.to(body.pos.device)
+    cands = find_candidates_kernel(body, om_d, CandidateCaps(*EV_CAPS),
+                                   cfg.dt)
+    pred = xpbd.integrate(body, om_d, cfg.dt / cfg.substeps, cfg.gravity)
+    return papi._narrowphase_mixed_kernel(pred, om_d, cands, True)
+
+
+def want_of(kernels, per_kernel):
+    """Each counter's expected launches: its value in ``per_kernel``,
+    else 0."""
+    return [per_kernel.get(k, 0) for k in kernels]
+
+
+def expect_launches(what, kernels, launches, want):
+    for k, n, must in zip(kernels, launches, want):
+        if n != must:
+            raise AssertionError(f"{what}: {k.symbol} launched {n} times, "
+                                 f"expected {must}")
+    print(f"{what}: launches " + ", ".join(
+        f"{k.symbol} {n}" for k, n in zip(kernels, launches)))
+
+
+def events_consistent(ev, table):
+    """[] bool on the device: the singleton's invariants (num in [0, K],
+    overflow only with num == K, live slots naming two distinct live rows
+    with their entity handles, the rest -1)."""
+    import torch
+
+    k = ev["row_a"].shape[1]
+    num = ev["num"]
+    live = torch.arange(k, device=num.device) < num[:, None]
+    n_rows = table.entity_id.shape[1]
+    ok = ((num >= 0) & (num <= k)).all()
+    ok &= ((ev["overflow"] == 0) | ((ev["overflow"] == 1) & (num == k))).all()
+    for r, h in (("row_a", "a"), ("row_b", "b")):
+        rows = ev[r]
+        ok &= torch.where(live, (rows >= 0) & (rows < n_rows),
+                          rows == -1).all()
+        rc = rows.long().clamp(0, n_rows - 1)
+        want = torch.stack([torch.gather(table.entity_gen, 1, rc),
+                            torch.gather(table.entity_id, 1, rc)], -1)
+        ok &= torch.where(live[..., None], ev[h] == want, ev[h] == -1).all()
+    return ok & torch.where(live, ev["row_a"] != ev["row_b"], True).all()
+
+
+def check_events(kernels, card):
+    """Phase 27: the CollisionEvents export at EV_W worlds for EV_STEPS
+    steps through B1, B6 and B3 (each once a step, no other kernel); the
+    singleton's invariants at every step; ms a step, the export's share,
+    launches and device busy share a step; 8 worlds carried to the CPU
+    after EV_CHECK_AT steps, one step on both: every integer of the
+    singleton equal, except in a world where some contact lane is live
+    on one side only and its depth there is within EV_DEPTH_MARGIN of
+    zero (a witness), and the body state within the golden bounds (phase
+    20's rule); at most MAX_WITNESSED witnesses. Returns the launches."""
+    import torch
+    from madrona_tpu_torch.ops import broadphase_cuda, solver_cuda
+    from madrona_tpu_torch.ops import hh_narrowphase_cuda as hhc
+    from madrona_tpu_torch.physics import api as papi
+
+    what = f"events {EV_W} worlds"
+    ex, om, cfg, _ = events_scene(EV_W, DEV)
+    step = ex.step_fn()
+    for k in kernels:
+        k.launches = 0
+    state, saved = ex.state, {}
+    ok = torch.ones((), dtype=torch.bool, device=DEV)
+    fired = torch.zeros((EV_W,), dtype=torch.bool, device=DEV)
+    clamped = torch.zeros((EV_W,), dtype=torch.bool, device=DEV)
+    t0 = None
+    for t in range(EV_STEPS):
+        if t in EV_CHECK_AT:
+            saved[t] = state
+        if t == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, out = step(state, {})
+        ev = out["events"]
+        ok &= events_consistent(ev, state.tables[papi.RIGID_BODY])
+        ok &= torch.isfinite(state.tables[papi.RIGID_BODY].columns[
+            "Position"]).all()
+        fired |= ev["num"] > 0
+        clamped |= ev["overflow"] > 0
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (EV_STEPS - 1)
+    launches = [k.launches for k in kernels]
+    expect_launches(what, kernels, launches, want_of(kernels, {
+        broadphase_cuda.KERNEL: EV_STEPS, solver_cuda.KERNEL: EV_STEPS,
+        hhc.KERNEL: EV_STEPS, hhc.TIERS[True]: EV_STEPS}))
+    if not bool(ok):
+        raise AssertionError(f"{what}: an event buffer broke its invariants "
+                             "or a position is not finite")
+    last = out["events"]
+    frozen = frozen_contacts(ex, om, cfg, state)
+    # the export makes no host sync: torch raises on one in this mode
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        papi._write_collision_events(state, frozen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ev_ms = timed(lambda: papi._write_collision_events(state, frozen), 50)
+    per_step, busy_ms = device_profile(lambda: step(state, {}), 3)
+    print(f"{what}: {EV_STEPS} steps, events in {int(fired.sum())} worlds, "
+          f"{int((last['num'] > 0).sum())} at the last step (mean "
+          f"{float(last['num'].float().mean()):.2f} a world), clamped to "
+          f"{EV_MAX_EVENTS} in {int(clamped.sum())} worlds; {ms:.3f} ms/step, "
+          f"the export {ev_ms:.4f} ms ({ev_ms / ms:.4f} of the step), "
+          f"{per_step} device events and {busy_ms} device ms a step (busy "
+          f"{busy_ms / ms if busy_ms else 0:.4f}) ({card})")
+    if not bool(fired.all()):
+        raise AssertionError(f"{what}: a world without events")
+
+    # 8 worlds, one step on the card and on the CPU
+    card_ex = events_scene(len(CHECK_WORLDS), DEV)[0]
+    cpu_ex = events_scene(len(CHECK_WORLDS), "cpu")[0]
+    card_fn, cpu_fn = card_ex.step_fn(), cpu_ex.step_fn()
+    witnessed, body_wit = [], []
+    worst = {k: 0.0 for k in GOLDEN}
+    for t, st in saved.items():
+        c_start = world_slice(st, list(CHECK_WORLDS), DEV)
+        p_start = world_slice(st, list(CHECK_WORLDS), "cpu")
+        c_next, c_out = card_fn(c_start, {})
+        p_out = cpu_fn(p_start, {})[1]
+        body_vs_cpu("events", t, c_next, cpu_fn, p_start, {}, worst,
+                    body_wit)
+        differ = torch.zeros(len(CHECK_WORLDS), dtype=torch.bool)
+        for f, v in c_out["events"].items():
+            d = v.cpu() != p_out["events"][f]
+            differ |= d.reshape(d.shape[0], -1).any(1)
+        if not bool(differ.any()):
+            continue
+        fc = frozen_contacts(card_ex, om, cfg, c_start)
+        fp = frozen_contacts(cpu_ex, om, cfg, p_start)
+        c_live, p_live = fc.num.cpu() > 0, fp.num > 0
+        depth = torch.where(c_live, fc.points.cpu()[..., 3].amax(-1),
+                            fp.points[..., 3].amax(-1))
+        flip = c_live != p_live
+        for wi in torch.nonzero(differ)[:, 0].tolist():
+            lanes = torch.nonzero(flip[wi])[:, 0]
+            if not len(lanes) or float(depth[wi, lanes].abs().max()) > \
+                    EV_DEPTH_MARGIN:
+                raise AssertionError(
+                    f"events card vs CPU step {t}: world "
+                    f"{CHECK_WORLDS[wi]} differs, flipped lanes "
+                    f"{lanes.tolist()} depths {depth[wi, lanes].tolist()}")
+            witnessed.append((t, CHECK_WORLDS[wi], depth[wi, lanes].tolist()))
+    if len(witnessed) + len(body_wit) > MAX_WITNESSED:
+        raise AssertionError(f"events card vs CPU: witnessed {witnessed} "
+                             f"{body_wit}")
+    print(f"events card vs CPU path: worlds {list(CHECK_WORLDS)}, one step "
+          f"from the card's state after steps {EV_CHECK_AT}: every integer "
+          f"of CollisionEvents equal (witnessed worlds {witnessed}), largest "
+          f"body differences {worst!r}, body checks with a witness "
+          f"{body_wit}")
+    return launches, ms
+
+
+def check_tgs(make_sim, EscapeRoom, kernels, card):
+    """Phase 28: Escape Room at solver="tgs", narrowphase="kernel_sublane",
+    TGS_W worlds, TGS_STEPS steps of random_actions(RandomState(0)): B1
+    and B4 once a step, B6 at every substep, no other kernel; exports
+    finite and the agents on the floor (0.4 < z < 1.2) at every step; ms,
+    launches and device busy share a step; 8 worlds carried to the CPU
+    after TGS_CHECK_AT steps, one step on both within the golden bounds
+    (phase 20's rule). Returns the launches."""
+    import torch
+    from madrona_tpu_torch.ops import broadphase_cuda, lidar_cuda
+    from madrona_tpu_torch.ops import hh_narrowphase_cuda as hhc
+    from madrona_tpu_torch.models import escape_room as er
+    from madrona_tpu_torch.physics import api as papi
+
+    what = f"escape_room tgs {TGS_W} worlds"
+
+    def make_env():
+        return with_physics(EscapeRoom(), solver="tgs",
+                            narrowphase="kernel_sublane")
+
+    acts = EscapeRoom.random_actions(np.random.RandomState(0), TGS_STEPS,
+                                     TGS_W).to(DEV)
+    sim = make_sim(make_env(), num_worlds=TGS_W, seed=0, device=DEV)
+    reset = torch.zeros((TGS_W,), dtype=torch.int32, device=DEV)
+    for k in kernels:
+        k.launches = 0
+    ok = torch.ones((), dtype=torch.bool, device=DEV)
+    z_lo = torch.full((), 1e9, device=DEV)
+    z_hi = torch.full((), -1e9, device=DEV)
+    saved, t0 = {}, None
+    for t in range(TGS_STEPS):
+        if t in TGS_CHECK_AT:
+            saved[t] = sim.state
+        if t == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        out = sim.step({"action": acts[t], "reset": reset})
+        for v in out.values():
+            if v.is_floating_point():
+                ok &= torch.isfinite(v).all()
+        z = sim.state.tables[papi.RIGID_BODY].columns["Position"][
+            :, er.ROW_AGENT0:er.ROW_AGENT0 + er.N_AGENTS, 2]
+        z_lo = torch.minimum(z_lo, z.min())
+        z_hi = torch.maximum(z_hi, z.max())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (TGS_STEPS - 1)
+    launches = [k.launches for k in kernels]
+    per_sub = sim.env.cfg.substeps
+    expect_launches(what, kernels, launches, want_of(kernels, {
+        broadphase_cuda.KERNEL: TGS_STEPS, lidar_cuda.KERNEL: TGS_STEPS,
+        hhc.KERNEL: per_sub * TGS_STEPS,
+        hhc.TIERS[True]: per_sub * TGS_STEPS}))
+    if not bool(ok):
+        raise AssertionError(f"{what}: an export not finite")
+    if not (float(z_lo) > 0.4 and float(z_hi) < 1.2):
+        raise AssertionError(f"{what}: agents left the floor: z in "
+                             f"[{float(z_lo)}, {float(z_hi)}]")
+    it = iter(range(3))
+    per_step, busy_ms = device_profile(lambda: sim.step(
+        {"action": acts[next(it)], "reset": reset}), 3)
+    print(f"{what}: {TGS_STEPS} steps, exports finite, agents' z in "
+          f"[{float(z_lo):.4f}, {float(z_hi):.4f}]; {ms:.3f} ms/step, "
+          f"{TGS_W * 1e3 / ms:.1f} env-steps/s, {per_step} device events and {busy_ms} device ms "
+          f"a step (busy {busy_ms / ms if busy_ms else 0:.4f}) ({card})")
+
+    worlds = list(CHECK_WORLDS)
+    w = len(worlds)
+    card_fn = make_sim(make_env(), num_worlds=w, seed=0, device=DEV).step_fn()
+    cpu_fn = make_sim(make_env(), num_worlds=w, seed=0,
+                      device="cpu").step_fn()
+    zeros = torch.zeros((w,), dtype=torch.int32)
+    witnessed, worst = [], {k: 0.0 for k in GOLDEN}
+    for t, st in saved.items():
+        inp = {"action": acts[t, worlds].cpu(), "reset": zeros}
+        c_next = card_fn(world_slice(st, worlds, DEV),
+                         {k: v.to(DEV) for k, v in inp.items()})[0]
+        body_vs_cpu("escape_room tgs", t, c_next, cpu_fn,
+                    world_slice(st, worlds, "cpu"), inp, worst, witnessed)
+    if len(witnessed) > MAX_WITNESSED:
+        raise AssertionError(f"escape_room tgs card vs CPU: {witnessed}")
+    print(f"escape_room tgs card vs CPU path: worlds {worlds}, one step from "
+          f"the card's state after steps {TGS_CHECK_AT}: largest body "
+          f"differences {worst!r}; checks with a witness {witnessed}")
+    return launches, ms
+
+
+def check_gauss_seidel(kernels, card):
+    """Phase 29: the box stack with a sphere and joints (stack_scene) at
+    solver="gauss_seidel", GS_W worlds, GS_STEPS steps: B1 once a step,
+    no other kernel; positions finite; ms, launches and device busy share
+    a step; 8 worlds carried to the CPU after GS_CHECK_AT steps, one step
+    on both within the golden bounds (phase 20's rule). Returns the
+    launches."""
+    import torch
+    from madrona_tpu_torch.ops import broadphase_cuda
+    from madrona_tpu_torch.physics import api as papi
+    from madrona_tpu_torch.physics.xpbd import PhysicsConfig
+
+    what = f"gauss_seidel stack {GS_W} worlds"
+    cfg = PhysicsConfig(solver="gauss_seidel", dt=1.0 / 60.0)
+    ex, _, _ = stack_scene(cfg, GS_W, DEV)
+    step = ex.step_fn()
+    for k in kernels:
+        k.launches = 0
+    state, saved, t0 = ex.state, {}, None
+    for t in range(GS_STEPS):
+        if t in GS_CHECK_AT:
+            saved[t] = state
+        if t == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state = step(state, {})[0]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (GS_STEPS - 1)
+    launches = [k.launches for k in kernels]
+    expect_launches(what, kernels, launches, want_of(kernels, {
+        broadphase_cuda.KERNEL: GS_STEPS}))
+    pos = state.tables[papi.RIGID_BODY].columns["Position"]
+    if not bool(torch.isfinite(pos).all()):
+        raise AssertionError(f"{what}: a position is not finite")
+    per_step, busy_ms = device_profile(lambda: step(state, {}), 1)
+    print(f"{what}: {GS_STEPS} steps, positions finite, top box z mean "
+          f"{float(pos[:, 2, 2].mean()):.4f}; {ms:.3f} ms/step, "
+          f"{per_step} device events and {busy_ms} device ms a step (busy "
+          f"{busy_ms / ms if busy_ms else 0:.4f}) ({card})")
+
+    worlds = list(CHECK_WORLDS)
+    card_fn = stack_scene(cfg, len(worlds), DEV)[0].step_fn()
+    cpu_fn = stack_scene(cfg, len(worlds), "cpu")[0].step_fn()
+    witnessed, worst = [], {k: 0.0 for k in GOLDEN}
+    for t, st in saved.items():
+        c_next = card_fn(world_slice(st, worlds, DEV), {})[0]
+        body_vs_cpu("gauss_seidel", t, c_next, cpu_fn,
+                    world_slice(st, worlds, "cpu"), {}, worst, witnessed)
+    if len(witnessed) > MAX_WITNESSED:
+        raise AssertionError(f"gauss_seidel card vs CPU: {witnessed}")
+    print(f"gauss_seidel card vs CPU path: worlds {worlds}, one step from "
+          f"the card's state after steps {GS_CHECK_AT}: largest body "
+          f"differences {worst!r}; checks with a witness {witnessed}")
+    return launches, ms
+
+
+def check_queries(sim, card):
+    """Phase 30: on the main path's Escape Room state (W worlds),
+    raycast_bodies with 2 agents x QUERY_RAYS horizontal rays each (its
+    own row excluded) and hull_hull_distance2 for every pair of hull rows,
+    on the card against the CPU: hit rows equal and t within 1e-5
+    relative over all worlds; squared distances within GJK_TOL relative
+    (floored at 1) on the first QUERY_CPU_W worlds."""
+    import math
+
+    import torch
+    from madrona_tpu_torch.models import escape_room as er
+    from madrona_tpu_torch.physics import api as papi
+    from madrona_tpu_torch.physics import geo, gjk
+    from madrona_tpu_torch.physics import narrowphase as np_
+    from madrona_tpu_torch.physics import query
+    from madrona_tpu_torch.utils import math3d as m3
+
+    body = papi.body_state(sim.executor.sm, sim.state)
+    w, n = body.obj_id.shape
+    ang = torch.arange(QUERY_RAYS, device=DEV) * (2 * math.pi / QUERY_RAYS)
+    local = torch.stack([torch.sin(ang), torch.cos(ang),
+                         torch.zeros_like(ang)], -1)
+    rows = torch.arange(er.ROW_AGENT0, er.ROW_AGENT0 + er.N_AGENTS,
+                        device=DEV)
+    a = er.N_AGENTS
+    dirs = m3.quat_rotate(
+        body.rot[:, rows, None, :].expand(w, a, QUERY_RAYS, 4),
+        local.expand(w, a, QUERY_RAYS, 3)).reshape(w, -1, 3)
+    origins = body.pos[:, rows, None, :].expand(w, a, QUERY_RAYS, 3).reshape(
+        w, -1, 3)
+    excl = rows[None, :, None].expand(w, a, QUERY_RAYS).reshape(w, -1).to(
+        torch.int32)
+
+    def rays(b, om_, o, d, x):
+        return query.raycast_bodies(b, om_, o, d, 200.0, exclude_row=x)
+
+    om_c, om_p = sim.env.om.to(DEV), sim.env.om
+    body_p = dataclasses.replace(body, **{
+        f.name: getattr(body, f.name).cpu() for f in dataclasses.fields(body)})
+    t_c, r_c = rays(body, om_c, origins, dirs, excl)
+    t_p, r_p = rays(body_p, om_p, origins.cpu(), dirs.cpu(), excl.cpu())
+    if not torch.equal(r_c.cpu(), r_p):
+        raise AssertionError("raycast_bodies card vs CPU: rows differ at "
+                             f"{int((r_c.cpu() != r_p).sum())} rays")
+    rel = ((t_c.cpu() - t_p).abs() / t_p.abs().clamp(min=1.0)).max()
+    if float(rel) > 1e-5:
+        raise AssertionError(f"raycast_bodies card vs CPU: t off by {rel}")
+    ray_ms = timed(lambda: rays(body, om_c, origins, dirs, excl), 20)
+
+    # every pair of hull rows, each a convex vertex cloud in world space
+    hull_rows = torch.nonzero(om_p.prim_type[body_p.obj_id[0].long()]
+                              == geo.TYPE_HULL)[:, 0].to(DEV)
+    iu, ju = torch.triu_indices(len(hull_rows), len(hull_rows), 1,
+                                device=DEV)
+    iu, ju = hull_rows[iu], hull_rows[ju]
+
+    def distances(b, om_, worlds):
+        hw = np_.hull_to_world(
+            om_, b.obj_id[:worlds].reshape(-1),
+            b.pos[:worlds].reshape(-1, 3), b.rot[:worlds].reshape(-1, 4),
+            b.scale[:worlds].reshape(-1, 3))
+        v = hw.verts.reshape(worlds, n, -1, 3)
+        m = hw.verts_mask.reshape(worlds, n, -1)
+        i, j = iu.to(v.device), ju.to(v.device)
+        return gjk.hull_hull_distance2(v[:, i], m[:, i], v[:, j], m[:, j])
+
+    d_c = distances(body, om_c, w)
+    d_p = distances(body_p, om_p, QUERY_CPU_W)
+    rel_d = ((d_c[:QUERY_CPU_W].cpu() - d_p).abs()
+             / d_p.abs().clamp(min=1.0)).max()
+    if not (float(rel_d) <= GJK_TOL and bool(torch.isfinite(d_c).all())):
+        raise AssertionError(f"hull_hull_distance2 card vs CPU: {rel_d}")
+    gjk_ms = timed(lambda: distances(body, om_c, w), 3, 1)
+    print(f"raycast_bodies: {w} worlds x {r_c.shape[1]} rays, "
+          f"{float((r_c >= 0).float().mean()):.4f} hit, card == CPU rows, t "
+          f"within {float(rel):.3g} relative; {ray_ms:.3f} ms a call. "
+          f"hull_hull_distance2: {w} worlds x {len(iu)} pairs, "
+          f"{float((d_c == 0).float().mean()):.4f} of them touching, card "
+          f"vs CPU ({QUERY_CPU_W} worlds) within {float(rel_d):.3g} "
+          f"relative; {gjk_ms:.2f} ms a call ({card})")
+
+
 def main() -> int:
     import torch
 
@@ -2443,12 +3121,19 @@ def main() -> int:
         hh_narrowphase_cuda, lidar_cuda, raycast_cuda, solver_cuda,
     )
 
+    t_start = time.perf_counter()
+
+    def lap(label):
+        """The seconds since the start at each phase, for the run's budget."""
+        print(f"[phase {label} starts at {time.perf_counter() - t_start:.1f} s]")
+
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     card = card_line()
     print(card)
     kind = torch.cuda.get_device_name(0)
 
+    lap("1")
     # ---- 1. build
     t0 = time.perf_counter()
     libs = cuda_build.build(cuda_build.SOURCES)
@@ -2460,6 +3145,7 @@ def main() -> int:
                 print(f"  {src}: {line.strip()}")
     usage = resource_usage(libs)
 
+    lap("2-7")
     # ---- 2-7: kernels against their plain versions, on random scenes
     # and on a real Escape Room state (a probe sim, 3 steps in)
     acts = EscapeRoom.random_actions(np.random.RandomState(0), STEPS, W)
@@ -2473,6 +3159,7 @@ def main() -> int:
     li_err = check_lidar(probe)
     co_err, so_err, hh_err, fu_err, scene = check_physics_kernels(probe)
 
+    lap("8")
     # ---- 8: the main path, its kernel launches counted
     kernels = [broadphase_cuda.KERNEL, contacts_cuda.KERNEL,
                solver_cuda.KERNEL, lidar_cuda.KERNEL]
@@ -2508,12 +3195,14 @@ def main() -> int:
         f"{k} {v * 1e3:.2f}" for k, v in per_node.items()) + f" ({card})")
     del outs, outs2
 
+    lap("9")
     # ---- 9: the card against the port's CPU path, small; no fallback
     check_card_vs_cpu(make_sim, EscapeRoom, "escape_room")
     check_no_fallback(
         make_sim(EscapeRoom(), num_worlds=SMALL_W, seed=0, device=DEV),
         kernels)
 
+    lap("10")
     # ---- 10: the raycast kernel against its plain version, on a real
     # Hide & Seek state (a probe sim, 3 steps in) and on synthetic planes
     def pixels():
@@ -2531,6 +3220,7 @@ def main() -> int:
     ra_err, ray_scene = check_raycast(hs_probe)
     del hs_probe
 
+    lap("11")
     # ---- 11: B1-B3 and B8 on an arranged Hide & Seek state
     hs_state_probe = make_sim(state_only(), num_worlds=HS_STATE_W, seed=1,
                               device=DEV)
@@ -2551,6 +3241,7 @@ def main() -> int:
                 raise AssertionError(f"{kernel}: no tile took the {path} "
                                      "path")
 
+    lap("12")
     # ---- 12: Hide & Seek's two launches, their kernel launches counted
     hs_kernels = [broadphase_cuda.KERNEL, contacts_cuda.KERNEL,
                   solver_cuda.KERNEL, raycast_cuda.KERNEL, lidar_cuda.KERNEL]
@@ -2568,6 +3259,7 @@ def main() -> int:
     check_path(make_sim, state_only, HS_STATE_W, hs_kernels,
                [STEPS] * 3 + [0, 0], "hide_seek state only", hs_shapes, card)
 
+    lap("13")
     # ---- 13: Hide & Seek, the card against the CPU path; no fallback
     small_hs = check_hide_seek_small(make_sim,
                                      lambda: HideSeek(render_size=16))
@@ -2576,6 +3268,7 @@ def main() -> int:
     del small_hs
     torch.cuda.empty_cache()
 
+    lap("13a")
     # ---- 13a: the raycast kernel against its plain version on a real
     # state of the BLAS render tier (a probe sim, 3 steps in)
     def blas_pixels(**kw):
@@ -2589,6 +3282,7 @@ def main() -> int:
     rb_err, blas_ray_scene = check_raycast_blas(blas_probe)
     del blas_probe
 
+    lap("13b")
     # ---- 13b: the BLAS tier at full width, then with the per-view cull's
     # overlap export, their kernel launches counted
     blas_shapes = {"rgb": (HS_W, 4, HS_RENDER, HS_RENDER, 3),
@@ -2613,6 +3307,7 @@ def main() -> int:
     check_pixels(c_outs[-1], "hide_seek blas tlas_max_instances=8")
     del c_outs, ov
 
+    lap("13c")
     # ---- 13c: the BLAS tier, the card against the CPU path; no fallback
     small_blas = check_hide_seek_small(
         make_sim, lambda: HideSeek(render_size=16, render_tier="blas"),
@@ -2622,24 +3317,28 @@ def main() -> int:
     del small_blas
     torch.cuda.empty_cache()
 
+    lap("14")
     # ---- 14: the physics tiers of this slice at full width: each path's
-    # launches of all seven kernels counted
+    # launches of all seven kernels counted, the record kernel's also by
+    # SAT tier (B6 edge_dirs, B7 edge_pairs)
+    hh_tiers = [hh_narrowphase_cuda.TIERS[True],
+                hh_narrowphase_cuda.TIERS[False]]
     all_k = [broadphase_cuda.KERNEL, contacts_cuda.KERNEL,
              solver_cuda.KERNEL, lidar_cuda.KERNEL, raycast_cuda.KERNEL,
-             hh_narrowphase_cuda.KERNEL, fused_cuda.KERNEL]
+             hh_narrowphase_cuda.KERNEL, fused_cuda.KERNEL, *hh_tiers]
     er_shapes = {"flat_obs": (W, 2, 101)}
     path_launches = {}
     for what, make_env, w, want, shapes in (
         ("escape_room fused", lambda: with_physics(EscapeRoom(), **FUSED),
-         W, (STEPS, 0, 0, STEPS, 0, 0, STEPS), er_shapes),
+         W, (STEPS, 0, 0, STEPS, 0, 0, STEPS, 0, 0), er_shapes),
         ("hide_seek state only fused",
          lambda: with_physics(state_only(), **FUSED), HS_STATE_W,
-         (STEPS, 0, 0, 0, 0, 0, STEPS), hs_shapes),
+         (STEPS, 0, 0, 0, 0, 0, STEPS, 0, 0), hs_shapes),
         ("escape_room kernel_sublane",
          lambda: with_physics(EscapeRoom(), **SUBLANE), W,
-         (STEPS, 0, STEPS, STEPS, 0, STEPS, 0), er_shapes),
+         (STEPS, 0, STEPS, STEPS, 0, STEPS, 0, STEPS, 0), er_shapes),
         ("escape_room kernel", lambda: with_physics(EscapeRoom(), **LANE_MAJOR),
-         W, (STEPS, 0, STEPS, STEPS, 0, STEPS, 0), er_shapes),
+         W, (STEPS, 0, STEPS, STEPS, 0, STEPS, 0, 0, STEPS), er_shapes),
     ):
         _, p_outs, _, _, path_launches[what] = check_path(
             make_sim, make_env, w, all_k, want, what, shapes, card)
@@ -2659,6 +3358,7 @@ def main() -> int:
     print(f"escape_room step, {W} worlds, in turns (ms/step): " + ", ".join(
         f"{k} {v:.2f}" for k, v in turns) + f" ({card})")
 
+    lap("15")
     # ---- 15: the fused path, the card against the CPU path; no fallback
     # on the fused and the two hull-hull record paths
     check_card_vs_cpu(make_sim, fused_er, "escape_room fused")
@@ -2672,6 +3372,7 @@ def main() -> int:
             [hh_narrowphase_cuda.KERNEL], label=f"escape_room {what}")
     torch.cuda.empty_cache()
 
+    lap("16")
     # ---- 16: times at the main paths' shapes
     from madrona_tpu_torch.physics import api as papi
     from madrona_tpu_torch.physics import broadphase as bp
@@ -2898,8 +3599,8 @@ def main() -> int:
     sub = path_launches["escape_room kernel_sublane"]
     lane = path_launches["escape_room kernel"]
     fused_l = path_launches["escape_room fused"]
-    i_hh, i_fu = all_k.index(hh_narrowphase_cuda.KERNEL), all_k.index(
-        fused_cuda.KERNEL)
+    i_b6, i_b7, i_fu = (all_k.index(k) for k in (*hh_tiers,
+                                                  fused_cuda.KERNEL))
     f_threads, f_blocks = fused_cuda.tiling(
         scene["fused_args"][0], *scene["fused_args"][4:7],
         scene["fused_args"][8])[2:]
@@ -2942,10 +3643,10 @@ def main() -> int:
          blas_launches[hs_kernels.index(raycast_cuda.KERNEL)],
          rb_err, *ray_rows["raycast_blas"]),
         ("hh_narrowphase_sublane", "madrona_tpu_torch/csrc/hh_narrowphase.cu",
-         "madrona_tpu/ops/narrowphase_pallas.py:1227", sub[i_hh], hh_err,
+         "madrona_tpu/ops/narrowphase_pallas.py:1227", sub[i_b6], hh_err,
          *hh_rows["edge_dirs"]),
         ("hh_narrowphase", "madrona_tpu_torch/csrc/hh_narrowphase.cu",
-         "madrona_tpu/ops/narrowphase_pallas.py:403", lane[i_hh], hh_err,
+         "madrona_tpu/ops/narrowphase_pallas.py:403", lane[i_b7], hh_err,
          *hh_rows["edge_pairs"]),
         ("fused_step", "madrona_tpu_torch/csrc/fused_step.cu",
          "madrona_tpu/ops/physics_megakernel.py:287", fused_l[i_fu], fu_err,
@@ -2966,11 +3667,13 @@ def main() -> int:
               f"ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}: "
               f"{b} B, {ops} ops), {regs} registers, {stack} B stack "
               f"({card})")
+    lap("17")
     # ---- 17: rollout through two episodes, its kernel launches counted
     del largs, depth
     torch.cuda.empty_cache()
     check_rollout(make_sim, rollout, EscapeRoom, kernels, card)
 
+    lap("18-22")
     # ---- 18-22: the many-body tier and the ECS envs; no kernel on these
     # paths, every counter must stay at 0
     torch.cuda.empty_cache()
@@ -2984,6 +3687,7 @@ def main() -> int:
         f"pile {w} worlds {v:.2f}" for w, v in pile_ms.items())
         + f", cartpole {CART_W} worlds {cart_ms:.3f} ({card})")
 
+    lap("23-26")
     # ---- 23-26: Hanabi, Overcooked and the learners; no kernel on these
     # paths, every counter must stay at 0
     torch.cuda.empty_cache()
@@ -3011,6 +3715,38 @@ def main() -> int:
           + ", ".join(f"{k} {r:.1f}, {n}" for k, (r, n) in rates.items())
           + f" ({card})")
 
+    lap("27-30")
+    # ---- 27-30: the physics toolkit's paths: the events export (B1, B6,
+    # B3), TGS on Escape Room (B1, B6 at every substep, B4), the
+    # Gauss-Seidel oracle (B1); the queries, no kernel
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    new_paths = {
+        "events": check_events(all_k, card),
+        "tgs": check_tgs(make_sim, EscapeRoom, all_k, card),
+        "gauss_seidel": check_gauss_seidel(all_k, card),
+    }
+    check_queries(sim, card)
+    print(f"physics toolkit phases: {time.perf_counter() - t0:.1f} s; ms a "
+          "step: " + ", ".join(f"{k} {v[1]:.3f}" for k, v in new_paths.items())
+          + f" ({card})")
+    # each row's launches on the new paths, from its own counter: B6 and
+    # B7 from the record kernel's tier counts; the two raycast rows share
+    # the raycast kernel's count, which these paths hold at 0
+    counter = {"broadphase": broadphase_cuda.KERNEL,
+               "contacts": contacts_cuda.KERNEL,
+               "substep_solver": solver_cuda.KERNEL,
+               "lidar": lidar_cuda.KERNEL, "raycast": raycast_cuda.KERNEL,
+               "raycast_blas": raycast_cuda.KERNEL,
+               "hh_narrowphase_sublane": hh_tiers[0],
+               "hh_narrowphase": hh_tiers[1],
+               "fused_step": fused_cuda.KERNEL}
+    for row in rows:
+        i = all_k.index(counter[row["name"]])
+        row["launches_by_path"] = {
+            path: counts[i] for path, (counts, _) in new_paths.items()}
+
+    lap("end")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -21,8 +21,8 @@ The config names the kernel tiers on every device and the tensor's
 device picks the route inside each wrapper: on CUDA the broadphase, the
 contacts, the substep solver and the lidar launch their hand-written
 kernels or raise; on a CPU tensor the wrappers run the plain versions.
-The JAX package's hull-hull-only tiers ("pallas_sublane", "pallas") have
-no counterpart yet.
+The config passes through the port's tuned table and the MADRONA_TPU_*
+environment overrides (utils/config.py), as the JAX env's does.
 
 Axis convention: z up, +y is hallway depth ("forward"), x is width.
 """
@@ -45,6 +45,7 @@ from ..physics import joints as jt
 from ..physics.xpbd import PhysicsConfig
 from ..utils import math3d as m3
 from ..utils import rng as _rng
+from ..utils.config import apply_tuned, env_override
 from .base import EnvBase
 
 # ----------------------------------------------------------------- layout
@@ -126,7 +127,9 @@ class EscapeRoom(EnvBase):
 
     def __init__(self):
         self.om, self.obj = _make_objects()
-        self.cfg = PhysicsConfig(
+        # precedence: the values below < the port's tuned table <
+        # MADRONA_TPU_* environment variables (utils/config.py)
+        self.cfg = env_override(apply_tuned(PhysicsConfig(
             dt=DT, substeps=SUBSTEPS, gravity=(0.0, 0.0, -9.8),
             jacobi_iters=1,             # one position pass per substep
             narrowphase_once=True,      # contacts once per step
@@ -138,7 +141,7 @@ class EscapeRoom(EnvBase):
             # ref row is the static floor
             solver_dynamic_range=(ROW_CUBE0, N_BODIES),
             solver_ref_dyn_lanes=8,
-        )
+        ), self.name))
         # measured occupancy: at most 3 hull-hull and 8 hull-plane
         # candidates; no sphere prims, so no sphere lane
         self.caps = bp.CandidateCaps(hull_hull=8, hull_plane=8, sphere_any=0)

@@ -48,6 +48,7 @@ from ..render import MeshRegistry, RenderConfig, RenderingSystem
 from ..render.raycast import _trace_rays
 from ..utils import math3d as m3
 from ..utils import rng as _rng
+from ..utils.config import apply_tuned, env_override
 from .base import EnvBase
 
 N_HIDERS = 2
@@ -202,7 +203,10 @@ class HideSeek(EnvBase):
         mesh_reg, self.mobj = _make_meshes()
         self.mesh = mesh_reg.build()
         self.pixels = pixels
-        self.cfg = PhysicsConfig(
+        # precedence: the values below < the port's tuned table (keyed by
+        # the base env name for every render variant) < MADRONA_TPU_*
+        # environment variables (utils/config.py)
+        self.cfg = env_override(apply_tuned(PhysicsConfig(
             dt=DT, substeps=SUBSTEPS, narrowphase_once=True,
             jacobi_iters=1,             # one position pass per substep
             narrowphase="kernel_mega",  # contacts on the CUDA kernel
@@ -215,7 +219,7 @@ class HideSeek(EnvBase):
             # contact lanes >= 7 are the hull-plane segment, whose ref
             # row is the static floor
             solver_ref_dyn_lanes=7,
-        )
+        ), self.name))
         # hull-plane cap 9 = the dynamic-body count (3 boxes + 2 ramps +
         # 4 agents): every dynamic near the floor is a candidate. No
         # sphere prims, so no sphere lane.

@@ -35,6 +35,7 @@ from ..physics import bodies, broadphase as bp
 from ..physics.api import RIGID_BODY
 from ..physics.xpbd import PhysicsConfig
 from ..utils import rng as _rng
+from ..utils.config import apply_tuned, env_override
 from .base import EnvBase
 
 DT = 1.0 / 30.0
@@ -84,17 +85,16 @@ class Pile(EnvBase):
         self.episode_len = episode_len
         self.body_obs = body_obs
         self.om, self.obj = _make_objects()
-        # The JAX env passes this config through its tuned table and
-        # environment overrides (utils/config.py, not ported: ROADMAP.md
-        # queue A item 4). The table has no row for the pile, so the port
-        # takes the config as written. The narrowphase runs every substep:
-        # contacts frozen for a step let a dense pile fall through.
-        self.cfg = PhysicsConfig(
+        # Through the tuned table and the MADRONA_TPU_* environment
+        # overrides (utils/config.py), as the JAX env's config. The
+        # narrowphase runs every substep: contacts frozen for a step let
+        # a dense pile fall through.
+        self.cfg = env_override(apply_tuned(PhysicsConfig(
             dt=DT, substeps=SUBSTEPS,
             solver="jacobi", narrowphase_once=False,
             broadphase="swept", broadphase_window=broadphase_window,
             sat_tier="edge_dirs",
-        )
+        ), self.name))
         # candidate budget of the JAX env: hull-hull 2n, hull-plane n+8,
         # sphere 3n; summary[5] reports a saturated list or window
         self.caps = caps or bp.CandidateCaps(

@@ -40,6 +40,22 @@ _I = ctypes.c_int
 KERNEL = CudaKernel(
     "hh_narrowphase.cu", "hh_record_launch", [_P] * 6 + [_I] * 10 + [_P],
 )
+
+
+class TierCount:
+    """The launches of :data:`KERNEL` in one SAT tier, counted beside
+    KERNEL's own count where :func:`_launch` launches it: B6
+    (``edge_dirs``, ``narrowphase="kernel_sublane"``) and B7
+    (``edge_pairs``, ``"kernel"``) are one kernel, so only this tells
+    their launches apart."""
+
+    def __init__(self, tier: str):
+        self.symbol = f"{KERNEL.symbol}[{tier}]"
+        self.launches = 0
+
+
+# the tier counts, keyed by edge_dirs
+TIERS = {True: TierCount("edge_dirs"), False: TierCount("edge_pairs")}
 # hh_record_launch_tiled's arguments: hh_record_launch's, then the tile
 # width and the warp-lane limit, before the stream
 TILED_ARGTYPES = KERNEL.argtypes[:-1] + [_I] * 2 + [_P]
@@ -117,6 +133,7 @@ def _launch(hh, poses, obj, om, edge_dirs=True, tiled=None):
             dims[3], om.n_edge_dirs, 0 if edge_dirs else 1)
     if tiled is None:
         KERNEL.launch(*args, stream_ptr())
+        TIERS[bool(edge_dirs)].launches += 1
     else:
         fn, *setting = tiled
         err = fn(*args, *setting, stream_ptr())

@@ -1,8 +1,13 @@
 """PhysicsSystem: registration and the physics taskgraph node.
 
-Port of ``madrona_tpu/physics/api.py`` on its Jacobi branches.
+Port of ``madrona_tpu/physics/api.py``, in its branch order.
 Broadphase once per step (below), then one of:
 
+  * ``solver="tgs"``: every substep is ``physics/tgs.py``'s TGS-Soft
+    substep with the narrowphase run at each substep (on the hull-hull
+    record kernel under ``"kernel_sublane"``/``"kernel"``, else plain;
+    ``kernel_mega`` and ``megakernel`` do not apply, as in the JAX
+    package);
   * ``megakernel_fused=True``: the whole step (predicted-pose
     integrate, every narrowphase lane, every substep) in the fused-step
     kernel (``ops/fused_cuda``);
@@ -16,17 +21,22 @@ Broadphase once per step (below), then one of:
     package's ``"pallas_sublane"`` and ``"pallas"``), once per step under
     ``narrowphase_once``, else per substep; then with ``megakernel=True``
     every substep in the substep-solver kernel, else every substep as
-    integrate -> Jacobi position solve -> joints -> set_velocities ->
-    Jacobi velocity solve in tensor ops.
+    integrate -> position solve -> joints -> set_velocities -> velocity
+    solve in tensor ops, Jacobi (``solver="jacobi"``) or the
+    Gauss-Seidel oracle (``"gauss_seidel"``, slot by slot).
 
-The broadphase is the all-pairs kernel (``broadphase="kernel"``) or
-the swept tier (``"swept"``, plain PyTorch, the many-body tier); where
-the env registers a ``BroadphaseOverflow`` singleton the node keeps the
-running maximum of the candidates' overflow flag in it.
+The broadphase is the all-pairs kernel (``broadphase="kernel"``, and the
+JAX package's ``"pallas"`` and ``"all_pairs"``: its candidates equal
+the plain all-pairs tier's bit for bit) or the swept tier (``"swept"``,
+plain PyTorch, the many-body tier); where the env registers a
+``BroadphaseOverflow`` singleton the node keeps the running maximum of
+the candidates' overflow flag in it. Where the env registers the
+``CollisionEvents`` singleton (:func:`register_collision_events`), the
+node fills it each step from the contacts computed once per step.
 
-Each kernel wrapper runs its plain version on a CPU tensor. TGS, the
-Gauss-Seidel oracle and the collision-event export are not ported;
-selecting them raises ``NotImplementedError``.
+Each kernel wrapper runs its plain version on a CPU tensor. What the
+JAX package refuses with ``ValueError``, this node refuses with the
+same words when it is built.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ from . import broadphase as bp
 from . import geo
 from . import joints as _joints
 from . import narrowphase as np_
+from . import tgs as _tgs
 from . import xpbd
 from ..ops import contacts_cuda, fused_cuda, hh_narrowphase_cuda, solver_cuda
 from ..ops.broadphase_cuda import find_candidates_kernel
@@ -53,7 +64,7 @@ from .xpbd import BodyState, Contacts, PhysicsConfig
 
 RIGID_BODY = "RigidBody"
 JOINT_BUFFER = "JointBuffer"
-COLLISION_EVENTS = "CollisionEvents"   # the export itself is not ported
+COLLISION_EVENTS = "CollisionEvents"   # see register_collision_events
 
 _F32 = ((3,), torch.float32)
 
@@ -87,6 +98,74 @@ def register_types(reg: ECSRegistry, max_bodies: int):
         ],
         capacity=max_bodies,
     )
+
+
+def register_collision_events(reg: ECSRegistry, max_events: int = 16):
+    """Register the per-world collision-event buffer, filled every step
+    from the narrowphase contacts: the active pairs, compacted in
+    contact-buffer order. ``a``/``b`` are Entity handles ([K, 2] gen|id;
+    -1 for rows not allocated through the entity store), ``row_a``/
+    ``row_b`` the body table rows, ``num`` the event count (clamped to
+    ``max_events``; ``overflow`` flags the clamp).
+
+    Needs ``PhysicsConfig.narrowphase_once=True`` (contacts once per
+    step), a tier that builds the contacts outside a kernel (not
+    ``megakernel_fused``, not ``narrowphase="kernel_mega"``) and a
+    solver other than ``"tgs"``."""
+    k = max_events
+    reg.register_singleton(COLLISION_EVENTS, fields={
+        "a": ((k, 2), torch.int32), "b": ((k, 2), torch.int32),
+        "row_a": ((k,), torch.int32), "row_b": ((k,), torch.int32),
+        "num": ((), torch.int32), "overflow": ((), torch.int32),
+    })
+
+
+def _write_collision_events(state: SimState, contacts: Contacts
+                            ) -> SimState:
+    """Compact the active contact pairs into the CollisionEvents
+    singleton, in contact-buffer order: the JAX package's
+    ``masked_set_2d`` writes as one scatter each, with no host sync."""
+    buf = state.singletons[COLLISION_EVENTS]
+    k = buf["row_a"].shape[1]
+    w, c = contacts.num.shape
+    t = state.tables[RIGID_BODY]
+    n_rows = t.columns["Position"].shape[1]
+    dev = contacts.num.device
+
+    valid = contacts.num > 0
+    vi = valid.to(torch.int32)
+    rank = torch.cumsum(vi, dim=1, dtype=torch.int32) - vi     # [W, C]
+    total = vi.sum(dim=1, dtype=torch.int32)                    # [W]
+    # a kept pair's slot is its rank; the rest go to a spare slot k,
+    # dropped after the scatter (a masked index would sync the host)
+    slot = torch.where(valid & (rank < k), rank, k).long()
+    ref = contacts.ref.clamp(0, n_rows - 1)
+    alt = contacts.alt.clamp(0, n_rows - 1)
+
+    def compact(vals):
+        """vals [W, C, ...] at their slots in [W, k, ...], -1 in the
+        slots no pair fills."""
+        out = torch.full((w, k + 1) + vals.shape[2:], -1,
+                         dtype=torch.int32, device=dev)
+        idx = slot.view((w, c) + (1,) * (vals.dim() - 2)).expand(vals.shape)
+        return out.scatter_(1, idx, vals.to(torch.int32))[:, :k].contiguous()
+
+    def handles(rows):
+        if t.entity_id.shape[1] == 0:         # a no-entities archetype
+            return torch.full((w, c, 2), -1, dtype=torch.int32, device=dev)
+        rows_c = rows.long().clamp(0, t.entity_id.shape[1] - 1)
+        gen = torch.gather(t.entity_gen, 1, rows_c)
+        eid = torch.gather(t.entity_id, 1, rows_c)
+        return torch.stack([gen, eid], dim=-1)                  # [W, C, 2]
+
+    singles = dict(state.singletons)
+    singles[COLLISION_EVENTS] = {
+        "a": compact(handles(ref)), "b": compact(handles(alt)),
+        "row_a": compact(ref), "row_b": compact(alt),
+        "num": torch.clamp(total, max=k),
+        "overflow": (total > k).to(torch.int32),
+    }
+    return dataclasses.replace(state, singletons=singles)
 
 
 def register_joint_types(reg: ECSRegistry, max_joints: int):
@@ -217,53 +296,23 @@ def megakernel_fused_step(body: BodyState, cands: bp.Candidates,
 
 NARROWPHASES = ("xla", "kernel_mega", "kernel_sublane", "kernel")
 BROADPHASES = ("kernel", "swept")
+SOLVERS = ("jacobi", "gauss_seidel", "tgs")
 SAT_TIERS = ("edge_dirs", "edge_pairs")
 BROADPHASE_OVERFLOW = "BroadphaseOverflow"
 
 
 def _check_supported(sm: StateManager, cfg: PhysicsConfig,
                      om: ObjectManager, caps: bp.CandidateCaps):
-    later = []
-    if cfg.narrowphase not in NARROWPHASES:
-        later.append(f"narrowphase={cfg.narrowphase!r}")
-    if cfg.broadphase not in BROADPHASES:
-        later.append(f"broadphase={cfg.broadphase!r}")
-    if later:
-        raise NotImplementedError(
-            "not ported yet: " + ", ".join(later)
-        )
-    if cfg.solver != "jacobi":
-        raise NotImplementedError(
-            f"solver={cfg.solver!r} is not ported yet (ROADMAP.md queue A "
-            "item 8: the Gauss-Seidel oracle and TGS)"
-        )
-    if cfg.sat_tier not in SAT_TIERS:
-        raise ValueError(f"sat_tier must be one of {SAT_TIERS}, got "
-                         f"{cfg.sat_tier!r}")
-    if COLLISION_EVENTS in sm.singletons:
-        raise NotImplementedError("the CollisionEvents export is not ported")
-    if cfg.megakernel_fused:
-        if not cfg.narrowphase_once:
-            raise ValueError(
-                "PhysicsConfig.megakernel_fused requires solver='jacobi' "
-                "and narrowphase_once=True"
-            )
-    else:
-        if cfg.megakernel and not cfg.narrowphase_once:
-            raise ValueError(
-                "PhysicsConfig.megakernel requires narrowphase_once=True"
-            )
-        if cfg.narrowphase == "kernel_mega":
-            if not (cfg.narrowphase_once and cfg.megakernel):
-                raise ValueError(
-                    "narrowphase='kernel_mega' requires narrowphase_once="
-                    "True and megakernel=True"
-                )
-            if caps.sphere_any != 0:
-                raise ValueError(
-                    "narrowphase='kernel_mega' covers hull-hull and "
-                    "hull-plane lanes only; set CandidateCaps.sphere_any=0"
-                )
+    """Refuse at build time what the JAX package's node refuses when it
+    traces, with its words, in its branch order. ``PhysicsConfig`` has
+    already resolved the JAX package's tier names to the port's."""
+    for field, names in (("narrowphase", NARROWPHASES),
+                         ("broadphase", BROADPHASES), ("solver", SOLVERS),
+                         ("sat_tier", SAT_TIERS)):
+        if getattr(cfg, field) not in names:
+            raise ValueError(f"{field} must be one of {names} (or the JAX "
+                             f"package's name of one), got "
+                             f"{getattr(cfg, field)!r}")
     if cfg.solver_ref_dyn_lanes:
         # an env-layout contract (every contact lane >= K has a static
         # ref row): validate the parts visible at setup
@@ -281,14 +330,55 @@ def _check_supported(sm: StateManager, cfg: PhysicsConfig,
                 "solver_ref_dyn_lanes requires every plane object to be "
                 f"immovable; movable: {np.nonzero(movable)[0].tolist()}"
             )
+    events = COLLISION_EVENTS in sm.singletons
+    if events and (cfg.megakernel_fused or not cfg.narrowphase_once
+                   or cfg.solver == "tgs"):
+        raise ValueError(
+            "CollisionEvents export requires narrowphase_once=True with a "
+            "non-fused tier (solver='jacobi'/'gauss_seidel', "
+            "megakernel_fused=False): contacts must be computed once per "
+            "step outside the fused kernel"
+        )
+    if cfg.solver == "tgs":
+        return                      # the TGS branch comes first
+    jacobi = cfg.solver == "jacobi"
+    if cfg.megakernel_fused:
+        if not (jacobi and cfg.narrowphase_once):
+            raise ValueError(
+                "PhysicsConfig.megakernel_fused requires solver='jacobi' "
+                "and narrowphase_once=True"
+            )
+        return
+    if cfg.narrowphase == "kernel_mega":
+        if not (jacobi and cfg.narrowphase_once and cfg.megakernel):
+            raise ValueError(
+                "narrowphase='kernel_mega' (the JAX package's "
+                "'pallas_mega') requires solver='jacobi', "
+                "narrowphase_once=True and megakernel=True"
+            )
+        if caps.sphere_any != 0:
+            raise ValueError(
+                "narrowphase='kernel_mega' covers hull-hull and "
+                "hull-plane lanes only; set CandidateCaps.sphere_any=0"
+            )
+        if events:
+            raise ValueError(
+                "CollisionEvents export needs W-major Contacts; use "
+                "narrowphase='kernel_sublane' instead of 'kernel_mega'"
+            )
+    if cfg.megakernel and not (jacobi and cfg.narrowphase_once):
+        raise ValueError(
+            "PhysicsConfig.megakernel requires solver='jacobi' and "
+            "narrowphase_once=True"
+        )
 
 
 def make_physics_node(sm: StateManager, om: ObjectManager,
                       cfg: PhysicsConfig,
                       caps: Optional[bp.CandidateCaps] = None):
     """The physics step for ``builder.custom``: broadphase, contacts,
-    and every XPBD substep. ``om`` is built on the CPU; a copy is kept
-    per device the node runs on."""
+    and every substep. ``om`` is built on the CPU; a copy is kept per
+    device the node runs on."""
     caps = caps or bp.CandidateCaps()
     _check_supported(sm, cfg, om, caps)
     h = cfg.dt / cfg.substeps
@@ -312,6 +402,16 @@ def make_physics_node(sm: StateManager, om: ObjectManager,
         out = solver_cuda.substep_solver(cfg, state, param, *cargs, *jargs)
         return solver_cuda.unpack_out(body, out)
 
+    def tgs_step(body, om_d, cands, jbuf):
+        tcfg = _tgs.TGSConfig()
+        for _ in range(cfg.substeps):
+            body = _tgs.substep(body, lambda b: narrow(b, om_d, cands),
+                                om_d, h, cfg.gravity, tcfg, jbuf=jbuf)
+        # consumed, as in the JAX package (write_back does not store them)
+        return dataclasses.replace(
+            body, ext_force=torch.zeros_like(body.ext_force),
+            ext_torque=torch.zeros_like(body.ext_torque))
+
     def physics_step(sm_, state: SimState, node_key) -> SimState:
         body = body_state(sm_, state)
         dev = body.pos.device
@@ -329,6 +429,9 @@ def make_physics_node(sm: StateManager, om: ObjectManager,
                 singles[BROADPHASE_OVERFLOW], cands.overflow.to(torch.int32))
             state = dataclasses.replace(state, singletons=singles)
         jbuf = joints_view(state) if JOINT_BUFFER in sm_.singletons else None
+
+        if cfg.solver == "tgs":
+            return write_back(sm_, state, tgs_step(body, om_d, cands, jbuf))
 
         if cfg.megakernel_fused:
             return write_back(
@@ -350,26 +453,39 @@ def make_physics_node(sm: StateManager, om: ObjectManager,
         if cfg.narrowphase_once:
             frozen = narrow(xpbd.integrate(body, om_d, h, cfg.gravity), om_d,
                             cands)
+            if COLLISION_EVENTS in sm_.singletons:
+                state = _write_collision_events(state, frozen)
         if cfg.megakernel:
             cargs = solver_cuda.pack_contacts(frozen)
             return write_back(
                 sm_, state, megakernel_substeps(body, om_d, cargs, jbuf)
             )
+        jacobi = cfg.solver == "jacobi"
         for _ in range(cfg.substeps):
             body = xpbd.integrate(body, om_d, h, cfg.gravity)
             contacts = frozen if frozen is not None else narrow(
                 body, om_d, cands
             )
-            body, contacts = xpbd.solve_positions_jacobi(
-                body, contacts, om_d, cfg.jacobi_iters
-            )
-            if jbuf is not None:
-                body = _joints.solve_joints_jacobi(body, jbuf, om_d)
-            body = xpbd.set_velocities(body, h)
-            body = xpbd.solve_velocities_jacobi(
-                body, contacts, om_d, h,
-                cfg.restitution, cfg.restitution_threshold,
-            )
+            if jacobi:
+                body, contacts = xpbd.solve_positions_jacobi(
+                    body, contacts, om_d, cfg.jacobi_iters
+                )
+                if jbuf is not None:
+                    body = _joints.solve_joints_jacobi(body, jbuf, om_d)
+                body = xpbd.set_velocities(body, h)
+                body = xpbd.solve_velocities_jacobi(
+                    body, contacts, om_d, h,
+                    cfg.restitution, cfg.restitution_threshold,
+                )
+            else:
+                body, contacts = xpbd.solve_positions(body, contacts, om_d)
+                if jbuf is not None:
+                    body = _joints.solve_joints(body, jbuf, om_d)
+                body = xpbd.set_velocities(body, h)
+                body = xpbd.solve_velocities(
+                    body, contacts, om_d, h,
+                    cfg.restitution, cfg.restitution_threshold,
+                )
         return write_back(sm_, state, body)
 
     return physics_step

@@ -44,6 +44,9 @@ class ObjectManager:
     # inv_mass(1) inv_inertia(3) mu_s(1) mu_d(1) aabb_min(3) aabb_max(3)
     # sphere_radius(1) prim_type(1, as float)
     body_pack: torch.Tensor       # [O, 14] f32
+    # local face planes (n, d) and their mask, for the ray query
+    hull_planes: torch.Tensor     # [O, F, 4] f32
+    hull_faces_mask: torch.Tensor  # [O, F] bool
 
     @property
     def num_objects(self) -> int:
@@ -215,6 +218,9 @@ class ObjectRegistry:
         def stack(get):
             return torch.from_numpy(np.stack([get(r) for r in self._rows]))
 
+        def stack_hulls(get):
+            return torch.from_numpy(np.stack([get(h) for h in trimmed]))
+
         body_pack = stack(lambda r: np.concatenate([
             [np.float32(r["inv_mass"])],
             np.asarray(r["inv_inertia"], np.float32),
@@ -235,4 +241,6 @@ class ObjectRegistry:
             ),
             n_edge_dirs=nd,
             body_pack=body_pack,
+            hull_planes=stack_hulls(lambda h: h.planes),
+            hull_faces_mask=stack_hulls(lambda h: h.faces_mask),
         )

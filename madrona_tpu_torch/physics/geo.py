@@ -1,17 +1,18 @@
 """Collision geometry: convex hulls as padded numpy tables.
 
-Numpy-only copy of the parts of ``madrona_tpu/physics/geo.py`` the
-Escape Room reaches (the port imports nothing of the JAX package):
-``build_hull``, ``box_hull``, ``hull_mass_properties`` and
-``unique_edge_dirs``. A hull is a fixed-capacity padded table of
-verts, face planes, face polygons and edges; primitive type codes match
-the reference's dispatch encoding (Sphere=1, Hull=2, Plane=4).
-``convex_hull_from_points`` comes with the asset importer.
+Numpy-only copy of ``madrona_tpu/physics/geo.py`` (the port imports
+nothing of the JAX package): ``build_hull``, ``box_hull``,
+``convex_hull_from_points``, ``hull_mass_properties`` and
+``unique_edge_dirs``. A hull is a fixed-capacity padded table of verts,
+face planes, face polygons and edges; primitive type codes match the
+reference's dispatch encoding (Sphere=1, Hull=2, Plane=4). The hull
+builder runs the same float64 numpy steps in the same order as the JAX
+package's, so it gives the same ``HullData`` bit for bit.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import List, Sequence
 
 import numpy as np
 
@@ -131,6 +132,119 @@ def box_hull(half_extents) -> HullData:
     ]
     return build_hull(verts, faces)
 
+
+
+def convex_hull_from_points(points: np.ndarray) -> HullData:
+    """Convex hull of a point cloud (gift-wrapping via incremental method).
+
+    Small-n replacement for the reference asset pipeline's hull builder
+    (``RigidBodyAssets::processRigidBodyAssets``,
+    src/physics/physics_assets.cpp:556-1030): builds triangle hull then
+    merges coplanar faces so SAT sees true n-gon faces.
+    """
+    points = np.asarray(points, np.float64)
+    tri_faces = _incremental_hull(points)
+    # merge coplanar neighbors into n-gon faces
+    faces = _merge_coplanar(points, tri_faces)
+    used = sorted({v for f in faces for v in f})
+    remap = {v: i for i, v in enumerate(used)}
+    new_faces = [[remap[v] for v in f] for f in faces]
+    return build_hull(points[used].astype(np.float32), new_faces)
+
+
+def _incremental_hull(pts: np.ndarray) -> List[List[int]]:
+    n = len(pts)
+    if n < 4:
+        raise ValueError("need >= 4 points")
+    # find 4 non-coplanar starting points
+    i0 = 0
+    i1 = max(range(n), key=lambda i: np.linalg.norm(pts[i] - pts[i0]))
+    i2 = max(
+        range(n),
+        key=lambda i: np.linalg.norm(
+            np.cross(pts[i1] - pts[i0], pts[i] - pts[i0])
+        ),
+    )
+    nrm = np.cross(pts[i1] - pts[i0], pts[i2] - pts[i0])
+    i3 = max(range(n), key=lambda i: abs(np.dot(nrm, pts[i] - pts[i0])))
+    if abs(np.dot(nrm, pts[i3] - pts[i0])) < 1e-12:
+        raise ValueError("degenerate (coplanar) point set")
+
+    if np.dot(nrm, pts[i3] - pts[i0]) > 0:
+        faces = [[i0, i2, i1], [i0, i1, i3], [i1, i2, i3], [i2, i0, i3]]
+    else:
+        faces = [[i0, i1, i2], [i1, i0, i3], [i2, i1, i3], [i0, i2, i3]]
+
+    def face_normal(f):
+        a, b, c = pts[f[0]], pts[f[1]], pts[f[2]]
+        return np.cross(b - a, c - a)
+
+    for p in range(n):
+        if p in (i0, i1, i2, i3):
+            continue
+        visible = [
+            f
+            for f in faces
+            if np.dot(face_normal(f), pts[p] - pts[f[0]]) > 1e-10
+        ]
+        if not visible:
+            continue
+        # horizon edges: edges of visible faces not shared with another
+        # visible face
+        edge_count = {}
+        for f in visible:
+            for k in range(3):
+                e = (f[k], f[(k + 1) % 3])
+                edge_count[e] = edge_count.get(e, 0) + 1
+        horizon = [
+            e
+            for e in edge_count
+            if (e[1], e[0]) not in edge_count
+        ]
+        faces = [f for f in faces if f not in visible]
+        for a, b in horizon:
+            faces.append([a, b, p])
+    return faces
+
+
+def _merge_coplanar(pts, tri_faces, tol=1e-6):
+    def plane_of(f):
+        a, b, c = pts[f[0]], pts[f[1]], pts[f[2]]
+        nrm = np.cross(b - a, c - a)
+        nrm = nrm / np.linalg.norm(nrm)
+        return nrm, np.dot(nrm, a)
+
+    groups: List[List[int]] = []
+    planes = []
+    assigned = [-1] * len(tri_faces)
+    for i, f in enumerate(tri_faces):
+        nrm, d = plane_of(f)
+        for gi, (gn, gd) in enumerate(planes):
+            if np.dot(nrm, gn) > 1 - tol and abs(d - gd) < 1e-6 * max(1, abs(gd)) + tol:
+                assigned[i] = gi
+                break
+        if assigned[i] < 0:
+            assigned[i] = len(planes)
+            planes.append((nrm, d))
+            groups.append([])
+        groups[assigned[i]].append(i)
+
+    out_faces = []
+    for gi, g in enumerate(groups):
+        vids = sorted({v for ti in g for v in tri_faces[ti]})
+        nrm, _ = planes[gi]
+        center = pts[vids].mean(axis=0)
+        # order CCW around normal
+        ref = pts[vids[0]] - center
+        ref = ref - np.dot(ref, nrm) * nrm
+        ref /= np.linalg.norm(ref)
+        ref2 = np.cross(nrm, ref)
+        ang = [
+            np.arctan2(np.dot(pts[v] - center, ref2), np.dot(pts[v] - center, ref))
+            for v in vids
+        ]
+        out_faces.append([v for _, v in sorted(zip(ang, vids))])
+    return out_faces
 
 
 def hull_mass_properties(hull: HullData, density: float = 1.0):

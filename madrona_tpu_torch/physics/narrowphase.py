@@ -70,6 +70,17 @@ class HullW:
     edge_dir_id: Optional[torch.Tensor] = None     # [B, E] f32
 
 
+def hull_to_world(om, obj_idx, pos, rot, scale) -> HullW:
+    """Object ``obj_idx``'s hull (an int, or one per lane [B]) in world
+    space at (pos [B, 3], rot [B, 4], scale [B, 3]), with the edges'
+    face normals (the edge_pairs query reads them)."""
+    idx = torch.as_tensor(obj_idx, device=pos.device).long()
+    row = torch.broadcast_to(om.hull_pack[idx], (pos.shape[0],
+                                                 om.hull_pack.shape[1]))
+    return hull_row_to_world(row, om.hull_dims, pos, rot, scale,
+                             edge_normals=True)
+
+
 def hull_row_to_world(row, dims, pos, rot, scale, need_edges: bool = True,
                       dirs_row=None, n_dirs: int = 0,
                       edge_normals: bool = False) -> HullW:

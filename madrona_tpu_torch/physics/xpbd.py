@@ -1,19 +1,22 @@
 """XPBD rigid-body solver: substepped position-based dynamics.
 
-Port of the Jacobi path of ``madrona_tpu/physics/xpbd.py`` (the
-reference's ``src/physics/xpbd.cpp`` math): integrate, the averaged
-Jacobi contact position solve, set_velocities and the Jacobi velocity
-solve with restitution and dynamic friction. Every contact is solved
-against a snapshot of the body state and the per-body corrections are
-averaged.
+Port of ``madrona_tpu/physics/xpbd.py`` (the reference's
+``src/physics/xpbd.cpp`` math): integrate, set_velocities, and the
+contact solves in both of the JAX package's orders.
 
-Per-contact body reads are index gathers of one packed block. The
-averaged scatter is a batched product with a 0/1 incidence matrix: its
-summation order is fixed, so a step is bit-reproducible on the card,
-which a float ``scatter_add_`` (atomics) would not be.
-
-The Gauss-Seidel oracle (``solve_positions``/``solve_velocities``) and
-the TGS solver come with the configurations that select them.
+  * Jacobi (``solver="jacobi"``): every contact is solved against a
+    snapshot of the body state and the per-body corrections are
+    averaged. Per-contact body reads are index gathers of one packed
+    block. The averaged scatter is a batched product with a 0/1
+    incidence matrix: its summation order is fixed, so a step is
+    bit-reproducible on the card, which a float ``scatter_add_``
+    (atomics) would not be.
+  * Gauss-Seidel (``solver="gauss_seidel"``, the oracle):
+    :func:`solve_positions` and :func:`solve_velocities` walk the C
+    contact slots in slot order, each slot one [W]-wide step over all
+    worlds, as the JAX package's ``fori_loop`` does and the reference's
+    serial per-world solve does. Each slot reads the bodies as the slots
+    before it left them.
 """
 
 from __future__ import annotations
@@ -53,7 +56,8 @@ class PhysicsConfig:
     # and "pallas"): the hull-hull lane on the hull-hull record kernel
     # (ops/hh_narrowphase_cuda), the hull-plane and sphere lanes in plain
     # tensor ops; "kernel" always sweeps edge pairs, "kernel_sublane"
-    # follows sat_tier (one CUDA kernel serves both)
+    # follows sat_tier (one CUDA kernel serves both). The JAX names are
+    # accepted and resolved to the port's in __post_init__
     narrowphase: str = "xla"
     # True: contacts generated once per step at the first substep's
     # predicted poses and reused across substeps
@@ -77,7 +81,9 @@ class PhysicsConfig:
     megakernel_fused: bool = False
     # "kernel": the all-pairs broadphase on its hand-written CUDA kernel
     # (ops/broadphase_cuda; up to 64 bodies a world); on a CPU tensor the
-    # wrapper runs the plain version. "swept": sort-by-x sweep and prune,
+    # wrapper runs the plain version. The JAX package's names "pallas"
+    # and "all_pairs" (its default) name this tier too (its candidates
+    # equal the plain all-pairs tier's bit for bit). "swept": sort-by-x sweep and prune,
     # the many-body tier (broadphase.find_candidates_swept, plain
     # PyTorch: the JAX package runs it in XLA), exact while no world
     # saturates its window of broadphase_window later bodies
@@ -85,9 +91,24 @@ class PhysicsConfig:
     broadphase: str = "kernel"
     broadphase_window: int = 32
     # "jacobi": every contact solved against a body snapshot and the
-    # corrections averaged. The JAX package's "gauss_seidel" oracle and
-    # "tgs" are not ported (ROADMAP.md queue A item 8) and raise
+    # corrections averaged. "gauss_seidel": the slot-order serial solve
+    # (solve_positions / solve_velocities, the oracle). "tgs": the
+    # velocity-level soft-contact solver of physics/tgs.py
     solver: str = "jacobi"
+
+    def __post_init__(self):
+        # a config written for the JAX package runs unchanged
+        for field, names in (("narrowphase", JAX_NARROWPHASES),
+                             ("broadphase", JAX_BROADPHASES)):
+            name = getattr(self, field)
+            if name in names:
+                object.__setattr__(self, field, names[name])
+
+
+# the JAX package's tier names -> the port's
+JAX_NARROWPHASES = {"pallas_mega": "kernel_mega",
+                    "pallas_sublane": "kernel_sublane", "pallas": "kernel"}
+JAX_BROADPHASES = {"pallas": "kernel", "all_pairs": "kernel"}
 
 
 @dataclasses.dataclass
@@ -555,3 +576,191 @@ def solve_velocities_jacobi(body: BodyState, contacts: Contacts, om,
     return dataclasses.replace(
         body, vel=body.vel + mean[..., :3], omega=body.omega + mean[..., 3:6]
     )
+
+
+# ---------------------------------------------------------------------------
+# The Gauss-Seidel oracle: one contact slot at a time, in slot order.
+#
+# A slot reads the bodies as the slots before it left them; only the
+# poses change in the position pass and only the velocities in the
+# velocity pass, so everything else a slot reads (previous and presolve
+# state, object parameters, the manifold's reduction and local anchors)
+# is computed for all slots before the loop. Inside it, the two bodies
+# of a contact are one [2, W, ...] batch (ref first): each operation on
+# the pair is one launch, and the ref's update adds what the alt's
+# subtracts, as the JAX package writes them.
+
+
+def _gather_pair(body: BodyState, om, row1, row2):
+    """The solver's views of two bodies per world, rows [W] (clamped into
+    [0, N); the caller masks sentinel rows)."""
+    both = _unpack(gather_rows(pack_bodies(body, om),
+                               torch.stack([row1, row2], dim=1)))
+    return ({k: v[:, 0] for k, v in both.items()},
+            {k: v[:, 1] for k, v in both.items()})
+
+
+def _row_mask(body: BodyState, row, ok):
+    """[W, N, 1] bool: the body ``row`` [W] of each world where ``ok``.
+    A row outside [0, N) selects nothing (the JAX scatter drops it)."""
+    n = body.pos.shape[1]
+    hit = torch.arange(n, device=row.device) == row.long()[:, None]
+    return (hit & ok[:, None])[..., None]
+
+
+def _scatter_pose(body: BodyState, row, x, q, ok):
+    sel = _row_mask(body, row, ok)
+    return dataclasses.replace(
+        body, pos=torch.where(sel, x[:, None, :], body.pos),
+        rot=torch.where(sel, q[:, None, :], body.rot),
+    )
+
+
+def _scatter_vel(body: BodyState, row, v, omg, ok):
+    sel = _row_mask(body, row, ok)
+    return dataclasses.replace(
+        body, vel=torch.where(sel, v[:, None, :], body.vel),
+        omega=torch.where(sel, omg[:, None, :], body.omega),
+    )
+
+
+def _slot_views(body: BodyState, contacts: Contacts, om):
+    """What every slot of a Gauss-Seidel pass reads that the pass does
+    not change: both bodies' solver views [2, W, C, ...] (ref first; their
+    x, q, v and w as at the start of the pass), the manifolds' ok [W, C]
+    and the anchors r [2, W, C, 3] of their average points in each body's
+    presolve frame."""
+    packed = pack_bodies(body, om)
+    b1 = _gather_packed(packed, contacts.ref)
+    b2 = _gather_packed(packed, contacts.alt)
+    avg, max_pen, zero = _avg_contacts_batch(contacts.points, contacts.num)
+    ok = (contacts.num > 0) & (~zero)
+    r1, r2 = _local_contacts(b1, b2, avg, max_pen, contacts.normal)
+    both = {k: torch.stack([b1[k], b2[k]]) for k in b1}
+    return both, ok, torch.stack([r1, r2])
+
+
+def _take_pair(table, ref, alt):
+    """table [W, N, D] at the rows ref, alt [W] -> [2, W, D]."""
+    n = table.shape[1]
+    widx = torch.arange(ref.shape[0], device=ref.device)
+    rows = torch.stack([ref, alt]).long().clamp(0, n - 1)
+    return table[widx[None], rows]
+
+
+@functools.lru_cache(maxsize=None)
+def _pair_sign(device) -> torch.Tensor:
+    """[2, 1, 1]: +1 for the ref's update, -1 for the alt's."""
+    return torch.tensor([1.0, -1.0], device=device).reshape(2, 1, 1)
+
+
+def solve_positions(body: BodyState, contacts: Contacts, om):
+    """Gauss-Seidel position solve (solvePositions, xpbd.cpp:720-736):
+    slot by slot, each slot reading the poses the slots before it wrote.
+    Returns (body, contacts with each slot's normal lambda)."""
+    b, ok, r = _slot_views(body, contacts, om)
+    avg_mu_s = 0.5 * (b["mu_s"][0] + b["mu_s"][1])
+    lam = torch.zeros_like(contacts.lambda_n)
+    for i in range(contacts.ref.shape[1]):
+        ref, alt = contacts.ref[:, i], contacts.alt[:, i]
+        pose = _take_pair(torch.cat([body.pos, body.rot], dim=-1), ref, alt)
+        x1, x2, q1, q2, lam_n = _solve_contact(
+            pose[0, :, :3], pose[1, :, :3], pose[0, :, 3:], pose[1, :, 3:],
+            b["prev_x"][0, :, i], b["prev_q"][0, :, i],
+            b["prev_x"][1, :, i], b["prev_q"][1, :, i],
+            b["inv_m"][0, :, i], b["inv_m"][1, :, i],
+            b["inv_i"][0, :, i], b["inv_i"][1, :, i],
+            r[0, :, i], r[1, :, i], contacts.normal[:, i], avg_mu_s[:, i],
+        )
+        body = _scatter_pose(body, ref, x1, q1, ok[:, i])
+        body = _scatter_pose(body, alt, x2, q2, ok[:, i])
+        lam[:, i] = torch.where(ok[:, i], lam_n, 0.0)
+    return body, dataclasses.replace(contacts, lambda_n=lam)
+
+
+def solve_velocities(body: BodyState, contacts: Contacts, om, h: float,
+                     restitution: float, restitution_threshold: float
+                     ) -> BodyState:
+    """Gauss-Seidel velocity solve (solveVelocities, xpbd.cpp:1041-1053):
+    slot by slot, restitution on the averaged contact, then dynamic
+    friction at each manifold point in turn, lambda_n shared out by
+    penetration."""
+    b, ok, r = _slot_views(body, contacts, om)
+    nrm = contacts.normal
+    num = contacts.num
+    sign = _pair_sign(nrm.device)
+    q = b["q"]                                            # [2, W, C, 4]
+    q_inv = m3.quat_inv(q)
+    mu_d = 0.5 * (b["mu_d"][0] + b["mu_d"][1])
+
+    # restitution's parts that the velocities do not change
+    r_pre = m3.quat_rotate(b["presolve_q"], r)
+    vb = b["presolve_v"] + m3.cross(b["presolve_w"], r_pre)
+    vn_bar = m3.dot(nrm, vb[0] - vb[1])
+    r_world = m3.quat_rotate(q, r)
+    rt_axis = m3.cross(r, m3.quat_rotate(q_inv, nrm))
+    rr_axis = b["inv_i"] * rt_axis
+    gw = _generalized_inv_mass(rt_axis, rr_axis, b["inv_m"])
+    den_r = gw[0] + gw[1]
+    e = torch.where(torch.abs(vn_bar) <= restitution_threshold, 0.0,
+                    restitution)
+    rest_bar = torch.clamp(-e * vn_bar, max=0.0)
+    imp_ok = ok & (den_r > 0)
+    den_r = torch.where(den_r > 0, den_r, 1.0)
+
+    # friction's: each manifold point's anchors and share of lambda_n
+    pts = contacts.points                                 # [W, C, 4, 4]
+    depth = pts[..., 3]
+    live4 = torch.arange(4, device=num.device) < num[..., None]
+    pen_sum = torch.where(live4, depth, 0.0).sum(dim=-1)
+    live_pt = ok[..., None] & live4 & (pen_sum > 0.0)[..., None]
+    lam_pt = torch.abs(contacts.lambda_n[..., None] * (
+        depth / torch.where(pen_sum > 0, pen_sum, 1.0)[..., None]))
+    pt_view = {k: b[k][..., None, :] for k in ("presolve_x", "presolve_q")}
+    r_pt = torch.stack(_local_contacts(
+        {k: v[0] for k, v in pt_view.items()},
+        {k: v[1] for k, v in pt_view.items()},
+        pts[..., :3], depth, nrm[..., None, :]))         # [2, W, C, 4, 3]
+    rw_pt = m3.quat_rotate(q[..., None, :], r_pt)
+
+    for i in range(contacts.ref.shape[1]):
+        ref, alt = contacts.ref[:, i], contacts.alt[:, i]
+        vw = _take_pair(torch.cat([body.vel, body.omega], dim=-1), ref, alt)
+        v, w = vw[..., :3], vw[..., 3:]                   # [2, W, 3]
+        n_i = nrm[:, i]
+        q_i, q_inv_i = q[:, :, i], q_inv[:, :, i]
+        inv_m, inv_i = b["inv_m"][:, :, i, None], b["inv_i"][:, :, i]
+
+        # restitution (applyRestitutionVelocityUpdate)
+        u = v + m3.cross(w, r_world[:, :, i])
+        vn = m3.dot(n_i, u[0] - u[1])
+        imp = torch.where(imp_ok[:, i],
+                          (rest_bar[:, i] - vn) / den_r[:, i], 0.0)
+        v = v + sign * (n_i * (imp[:, None] * inv_m))
+        w = w + sign * m3.quat_rotate(q_i, imp[:, None] * rr_axis[:, :, i])
+
+        # dynamic friction, one manifold point after another
+        for p in range(4):
+            rr, rw = r_pt[:, :, i, p], rw_pt[:, :, i, p]
+            u = v + m3.cross(w, rw)
+            v_rel = u[0] - u[1]
+            vt = v_rel - n_i * m3.dot(n_i, v_rel)[..., None]
+            vt_len = torch.sqrt(torch.clamp(m3.dot(vt, vt), min=1e-30))
+            t_dir = vt / vt_len[..., None]
+            fta = m3.cross(rr, m3.quat_rotate(q_inv_i, t_dir))
+            fra = inv_i * fta
+            fw = _generalized_inv_mass(fta, fra, inv_m[..., 0])
+            den_f = fw[0] + fw[1]
+            inv_scale = torch.where(
+                den_f > 0, 1.0 / torch.where(den_f > 0, den_f, 1.0), 0.0)
+            # inv_scale twice on purpose (xpbd.cpp:834-836)
+            dyn_mag = mu_d[:, i] * lam_pt[:, i, p] * inv_scale / h
+            f_imp = torch.where(
+                live_pt[:, i, p] & (vt_len > 1e-15),
+                -torch.minimum(dyn_mag, vt_len) * inv_scale, 0.0)
+            v = v + sign * (t_dir * (f_imp[:, None] * inv_m))
+            w = w + sign * m3.quat_rotate(q_i, f_imp[:, None] * fra)
+
+        body = _scatter_vel(body, ref, v[0], w[0], ok[:, i])
+        body = _scatter_vel(body, alt, v[1], w[1], ok[:, i])
+    return body

@@ -621,7 +621,12 @@ def test_hh_record_source_matches_plain(spheres, edge_dirs):
     body, om, cands = spheres
     poses, obj = contacts_cuda.pack_poses(body, body.obj_id)
     hh = cands.hh.contiguous()
+    tiers = hh_narrowphase_cuda.TIERS
+    before = {k: c.launches for k, c in tiers.items()}
     got = hh_narrowphase_cuda._launch(hh, poses, obj, om, edge_dirs)
+    # the launch is counted in its own SAT tier only
+    assert {k: c.launches - before[k] for k, c in tiers.items()} == {
+        edge_dirs: 1, not edge_dirs: 0}
     ref = hh_narrowphase_cuda.hh_record_plain(hh, poses, obj, om, edge_dirs)
     live = assert_lanes_match(hh_narrowphase_cuda.lanes(got),
                               hh_narrowphase_cuda.lanes(ref))

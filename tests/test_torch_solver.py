@@ -257,7 +257,9 @@ def test_env_config_names_the_kernel_tiers():
     (dict(), tbp.CandidateCaps(hull_hull=8, hull_plane=8, sphere_any=2),
      ValueError),
     (dict(narrowphase="xla", narrowphase_once=False), None, ValueError),
-    (dict(narrowphase="pallas_sublane"), None, NotImplementedError),
+    # the JAX package's name of kernel_sublane, with contacts per substep
+    (dict(narrowphase="pallas_sublane", narrowphase_once=False), None,
+     ValueError),
     (dict(megakernel_fused=True, narrowphase_once=False), None, ValueError),
     (dict(sat_tier="edge_triples"), None, ValueError),
     (dict(narrowphase="kernel_sublane", narrowphase_once=False), None,

@@ -318,3 +318,87 @@ def assert_trees_equal(a, b, path="state", dtypes=True):
         assert a.dtype == b.dtype, (path, a.dtype, b.dtype)
     assert a.shape == b.shape, (path, a.shape, b.shape)
     np.testing.assert_array_equal(a, b, err_msg=path)
+
+
+def stack_scene(port, cfg, w, seed=0):
+    """chip_smoke.stack_scene's box stack with a sphere and joints in one
+    package: (executor, ObjectManager, CandidateCaps). ``port``: the
+    PyTorch port on the CPU (chip_smoke's own builder), else the JAX
+    package, from the same numpy rows (chip_smoke.stack_arrays)."""
+    import chip_smoke
+
+    if port:
+        return chip_smoke.stack_scene(cfg, w, "cpu", seed)
+    import jax.numpy as jnp
+    from madrona_tpu.core.registry import ECSRegistry
+    from madrona_tpu.core.state import StateManager
+    from madrona_tpu.graph.builder import TaskGraphBuilder
+    from madrona_tpu.graph.executor import Executor
+    from madrona_tpu.physics import api, bodies, broadphase, geo
+    from madrona_tpu.physics import joints as jt
+
+    sm = StateManager()
+    reg = ECSRegistry(sm)
+    api.register_types(reg, max_bodies=4)
+    api.register_joint_types(reg, max_joints=2)
+    om_r = bodies.ObjectRegistry()
+    om_r.add_hull(geo.box_hull((0.5, 0.5, 0.5)), mass=1.0)
+    om_r.add_plane()
+    om_r.add_sphere(0.5, mass=1.0)
+    om = om_r.build()
+    caps = broadphase.CandidateCaps(*chip_smoke.STACK_CAPS)
+    b = TaskGraphBuilder(sm, "step")
+    api.setup_physics_step_tasks(b, om, cfg, caps)
+    ex = Executor(sm, {"step": b.build()}, num_worlds=w, seed=0,
+                  donate=False)
+    pos, rot, vel, joints = chip_smoke.stack_arrays(w, seed)
+    obj = np.tile([1, 0, 0, 2], (w, 1)).astype(np.int32)
+    resp = np.tile([bodies.RESPONSE_STATIC] + [bodies.RESPONSE_DYNAMIC] * 3,
+                   (w, 1)).astype(np.int32)
+    state, _ = sm.make_entities(
+        ex.state, api.RIGID_BODY,
+        chip_smoke.body_values(jnp.asarray, pos, rot, vel, obj, resp),
+        jnp.ones((w, 4), bool))
+    buf = api.joints_view(state)
+    for kind, kw in joints:
+        make = jt.make_fixed_joint if kind == "fixed" else jt.make_hinge_joint
+        buf = make(buf, **kw)
+    ex.state = api.write_joints(state, buf)
+    return ex, om, caps
+
+
+def events_scene_jax(w, max_events, seed=0):
+    """chip_smoke.events_scene's boxes pressed in pairs onto a plane in
+    the JAX package, from the same numpy rows (chip_smoke.events_arrays),
+    through its entity store: (executor with the scene's state, entity
+    handles [w, 9, 2]). Contacts once a step on the XLA tier, one Jacobi
+    iteration, as the port's scene."""
+    import chip_smoke
+    import jax.numpy as jnp
+    from madrona_tpu.core.registry import ECSRegistry
+    from madrona_tpu.core.state import StateManager
+    from madrona_tpu.graph.builder import TaskGraphBuilder
+    from madrona_tpu.graph.executor import Executor
+    from madrona_tpu.physics import api, bodies, broadphase, geo
+    from madrona_tpu.physics.xpbd import PhysicsConfig
+
+    sm = StateManager()
+    reg = ECSRegistry(sm)
+    api.register_types(reg, max_bodies=9)
+    api.register_collision_events(reg, max_events=max_events)
+    reg.export_singleton(api.COLLISION_EVENTS, "events")
+    om_r = bodies.ObjectRegistry()
+    chip_smoke.events_objects(om_r, geo)
+    om = om_r.build()
+    b = TaskGraphBuilder(sm, "step")
+    api.setup_physics_step_tasks(
+        b, om, PhysicsConfig(narrowphase_once=True, jacobi_iters=1),
+        broadphase.CandidateCaps(*chip_smoke.EV_CAPS))
+    ex = Executor(sm, {"step": b.build()}, num_worlds=w, seed=0,
+                  donate=False)
+    pos, rot, vel, force, obj, resp = chip_smoke.events_arrays(w, seed)
+    values = chip_smoke.body_values(jnp.asarray, pos, rot, vel, obj, resp)
+    values["ExternalForce"] = jnp.asarray(force)
+    ex.state, ents = sm.make_entities(ex.state, api.RIGID_BODY, values,
+                                      jnp.ones((w, 9), bool))
+    return ex, np.asarray(ents)
