@@ -199,7 +199,7 @@ Phases, each printing its own lines:
      one side only with a depth within 1e-5 of zero there (a witness),
      and the body state within the golden bounds (phase 20's rule);
  28. Escape Room at solver="tgs" with narrowphase="kernel_sublane",
-     4096 worlds x 100 steps of random actions: B1 and B4 once a step,
+     4096 worlds x 60 steps of random actions: B1 and B4 once a step,
      B6 at each of the 4 substeps, no other kernel; exports finite and
      both agents on the floor (0.4 < z < 1.2) at every step; ms, device
      events and busy share a step; 8 worlds after step 50 carried to
@@ -208,7 +208,7 @@ Phases, each printing its own lines:
      Gauss-Seidel and TGS tests' scene) at solver="gauss_seidel", 1024
      worlds x 30 steps: B1 once a step, no other kernel; positions
      finite; ms, device events and busy share a step; 8 worlds after
-     steps 10 and 20 carried to the CPU, one step within the golden
+     steps 10, 16 and 20 carried to the CPU, one step within the golden
      bounds (phase 20's rule);
  30. physics/query.py and physics/gjk.py on the main path's Escape Room
      state (4096 worlds): raycast_bodies for 2 agents x 30 rays (each
@@ -216,9 +216,39 @@ Phases, each printing its own lines:
      rows equal, t within 1e-5 relative), and hull_hull_distance2 for
      every pair of hull rows (190 a world) on the card, held against the
      CPU on the first 256 worlds (within 1e-5 relative); ms a call.
+ 31. the asset importers: an OBJ with its MTL and a 24 x 20 RGBA PNG
+     texture (alpha below 255), a .gltf quad with a data-URI PNG, a .glb
+     cube with its PNG in the binary chunk and a .usda pillar under two
+     Xforms, written by this script's own writers (png_bytes through
+     zlib, write_assets) and imported by madrona_tpu_torch.assets;
+     bake_assets_blas (textures resampled to 64^2 without PIL); the
+     scene rendered by render_views_blas at 1024 worlds x 4 views of 64 x
+     64 with a shadow-casting sun: the raycast kernel launched once and
+     no other, its planes equal to its plain version; the gather,
+     one-hot and 4-wide (float32 and bfloat16 boxes) walkers on 2^16
+     rays of the imported objects: the one-hot walker equal to the
+     gather walker, the wide walkers' hits equal (t within 1e-4
+     relative, the triangle equal but at ties); on the plain BLAS tier
+     (the kernel tier off), ray_chunk 256 and the one-hot walker give the
+     default's planes bit for bit and launch no kernel;
+ 32. examples/torch_train_ppo_pixels.py at its defaults (256 worlds, 16 x
+     16 RGBD, horizon 16, two epochs): 5 updates on the dense tier
+     (tlas_max_instances=8) and 2 on the BLAS tier; B1, B2, B3 and B5
+     launched once an environment step each (16 an update and the first
+     zero-action step), no other kernel; the parameters finite and
+     moved; updates/s, env-steps/s with the render and the learner, and
+     the device's busy share of a dense-tier update (torch.profiler, the
+     device alone);
+ 33. checkpoints (madrona_tpu_torch.utils.checkpoint): the Escape Room
+     state at 4096 worlds saved into a snapshot and restored in half the
+     worlds (every tensor as expected, the step counter live), its npz
+     round trip bit for bit; PPO on Cartpole (1024 worlds) saved after 2
+     updates (the state's npz, the parameters and the action generator's
+     state) and resumed in a fresh make_train for 2 more, bit-identical
+     to 4 straight updates; no kernel launched by the learner.
      The JSON line's rows carry "launches_by_path": each kernel's
-     launches on the paths of phases 27-29, B6's and B7's from the
-     record kernel's tier counts.
+     launches on the paths of phases 27-29, 31 and 32, B6's and B7's
+     from the record kernel's tier counts.
 
 Any failure raises (non-zero exit). The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -311,11 +341,11 @@ EV_PUSH = 5.0             # N pressing each pair of boxes together
 EV_CHECK_AT = (20, 40)    # steps after which 8 worlds go to the CPU
 EV_DEPTH_MARGIN = 1e-5    # a contact this near zero depth may flip
 TGS_W = 4096              # Escape Room at solver="tgs"
-TGS_STEPS = 100
+TGS_STEPS = 60
 TGS_CHECK_AT = (50,)
 GS_W = 1024               # the box stack at solver="gauss_seidel"
 GS_STEPS = 30
-GS_CHECK_AT = (10, 20)
+GS_CHECK_AT = (10, 16, 20)  # 16 parted by 0.084 before math3d.sum_in_order
 CHECK_WORLDS = (0, 1, 2, 3, 4, 5, 6, 7)
 MAX_WITNESSED = 2         # checks of a phase that may need a witness
 QUERY_RAYS = 30           # rays an agent for raycast_bodies
@@ -2242,15 +2272,16 @@ def check_projectiles(make_sim, Projectiles, kernels, card):
           f"{PROJ_POS_TOL}, no kernel launched ({card})")
 
 
-def device_profile(run, calls=PROFILE_STEPS):
+def device_profile(run, calls=PROFILE_STEPS, host=True):
     """(device events (kernels, copies, fills) a call, device ms a call)
     of ``run()`` under torch.profiler over ``calls`` calls; (None, None)
-    where the profiler recorded no device time."""
+    where the profiler recorded no device time. ``host=False`` records
+    the device alone (much less to collect on a long call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
+    with profile(activities=acts) as prof:
         for _ in range(calls):
             run()
         torch.cuda.synchronize()
@@ -3096,6 +3127,638 @@ def check_queries(sim, card):
           f"relative; {gjk_ms:.2f} ms a call ({card})")
 
 
+# ---------------------------------------------------------------------------
+# Phases 31-33: the asset importers, the pixel learner, checkpoints
+
+ASSET_W = 1024            # worlds of the imported scene's render
+ASSET_VIEWS = 4
+ASSET_RENDER = 64
+ASSET_TEX = 64            # the atlas's texture size
+ASSET_PLAIN_W = 4         # worlds of the plain BLAS tier's ray_chunk check
+ASSET_CHUNK = 256         # the ray_chunk held against the default
+WALK_RAYS = 1 << 16       # rays of the walkers' check
+WALK_T_TOL = 1e-4         # the 4-wide walker's t against the binary one's
+PIX_W = 256               # examples/train_ppo_pixels.py's defaults
+PIX_RENDER = 16
+PIX_UPDATES = (("dense", 5), ("blas", 2))
+PIX_PROFILED = "dense"    # the tier whose update is profiled
+CKPT_W = 4096             # the Escape Room state saved and restored
+CKPT_STEPS = 3
+CKPT_PPO_W = 1024         # the Cartpole PPO run resumed from disk
+CKPT_PPO_UPDATES = 2      # updates before and after the save
+
+
+def png_bytes(img, filters=0, palette=None, trns=None):
+    """A PNG file of ``img`` written with zlib: [H, W, C] uint8 with C =
+    1 (grey), 2 (grey, alpha), 3 (RGB) or 4 (RGBA); or, with
+    ``palette`` [P, 3] uint8 (and its alphas ``trns``), [H, W] palette
+    indices. Every row is filtered by ``filters`` (0 None, 1 Sub, 2 Up,
+    3 Average, 4 Paeth; one value, or one a row)."""
+    import struct
+    import zlib
+
+    img = np.asarray(img, np.uint8)
+    if palette is not None:
+        ctype, raw = 3, img[..., None]
+    else:
+        raw = img if img.ndim == 3 else img[..., None]
+        ctype = {1: 0, 2: 4, 3: 2, 4: 6}[raw.shape[2]]
+    h, w, bpp = raw.shape
+    rows = raw.reshape(h, w * bpp).astype(np.int64)
+    kinds = np.broadcast_to(np.asarray(filters), (h,))
+    out = bytearray()
+    prior = np.zeros(w * bpp, np.int64)
+    for y in range(h):
+        x = rows[y]
+        a = np.concatenate([np.zeros(bpp, np.int64), x[:-bpp]])
+        c = np.concatenate([np.zeros(bpp, np.int64), prior[:-bpp]])
+        b = prior
+        k = int(kinds[y])
+        if k == 0:
+            f = x
+        elif k == 1:
+            f = x - a
+        elif k == 2:
+            f = x - b
+        elif k == 3:
+            f = x - (a + b) // 2
+        else:
+            p = a + b - c
+            pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+            f = x - np.where((pa <= pb) & (pa <= pc), a,
+                             np.where(pb <= pc, b, c))
+        out.append(k)
+        out += (f & 0xFF).astype(np.uint8).tobytes()
+        prior = x
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    data = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
+    if palette is not None:
+        data += chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+        if trns is not None:
+            data += chunk(b"tRNS", np.asarray(trns, np.uint8).tobytes())
+    return (data + chunk(b"IDAT", zlib.compress(bytes(out)))
+            + chunk(b"IEND", b""))
+
+
+def _grid_mesh(n, span):
+    """A bumpy n x n height field over [-span, span]^2: (positions
+    [n*n, 3], triangles [2 (n-1)^2, 3], per-vertex UVs [n*n, 2])."""
+    rs = np.random.RandomState(5)
+    xs = np.linspace(-span, span, n)
+    z = rs.uniform(0.0, 0.4, (n, n))
+    pos = np.stack([np.repeat(xs, n), np.tile(xs, n), z.ravel()], -1)
+    tris = []
+    for i in range(n - 1):
+        for j in range(n - 1):
+            a = i * n + j
+            tris += [(a, a + n, a + n + 1), (a, a + n + 1, a + 1)]
+    uv = (pos[:, :2] + span) / (2 * span)
+    return (pos.astype(np.float32), np.asarray(tris, np.int32),
+            uv.astype(np.float32))
+
+
+def _cube():
+    """A unit cube: (positions [8, 3], triangles [12, 3], UVs [8, 2])."""
+    pos = np.array([[x, y, z] for z in (-1, 1) for y in (-1, 1)
+                    for x in (-1, 1)], np.float32)
+    quads = [(0, 1, 3, 2), (4, 6, 7, 5), (0, 4, 5, 1), (2, 3, 7, 6),
+             (0, 2, 6, 4), (1, 5, 7, 3)]
+    tris = [(q[0], q[1], q[2]) for q in quads] + [(q[0], q[2], q[3])
+                                                  for q in quads]
+    uv = np.stack([(pos[:, 0] + 1) / 2, (pos[:, 2] + 1) / 2], -1)
+    return pos, np.asarray(tris, np.int32), uv.astype(np.float32)
+
+
+def _checker(s, colours):
+    yy, xx = np.mgrid[0:s, 0:s]
+    pick = ((yy // 2 + xx // 2) % 2).astype(bool)
+    return np.where(pick[..., None], np.asarray(colours[1], np.uint8),
+                    np.asarray(colours[0], np.uint8))
+
+
+def _gltf_doc(pos, tris, uv, name, image):
+    """(glTF document, binary buffer) of one textured triangle mesh;
+    ``image``: {"uri": ...} or {"bufferView": i} (which this appends)."""
+    blob = pos.tobytes() + uv.tobytes() + tris.astype(np.uint16).tobytes()
+    n, t = len(pos), tris.size
+    views = [{"buffer": 0, "byteOffset": 0, "byteLength": 12 * n},
+             {"buffer": 0, "byteOffset": 12 * n, "byteLength": 8 * n},
+             {"buffer": 0, "byteOffset": 20 * n, "byteLength": 2 * t}]
+    doc = {
+        "asset": {"version": "2.0"},
+        "bufferViews": views,
+        "accessors": [
+            {"bufferView": 0, "componentType": 5126, "count": n,
+             "type": "VEC3"},
+            {"bufferView": 1, "componentType": 5126, "count": n,
+             "type": "VEC2"},
+            {"bufferView": 2, "componentType": 5123, "count": t,
+             "type": "SCALAR"}],
+        "meshes": [{"name": name, "primitives": [{
+            "attributes": {"POSITION": 0, "TEXCOORD_0": 1}, "indices": 2,
+            "material": 0}]}],
+        "materials": [{"name": name + "_mat", "pbrMetallicRoughness": {
+            "baseColorFactor": [1.0, 0.9, 0.8, 1.0], "metallicFactor": 0.1,
+            "roughnessFactor": 0.7, "baseColorTexture": {"index": 0}}}],
+        "textures": [{"source": 0}],
+        "images": [image],
+    }
+    return doc, blob
+
+
+def write_assets(d):
+    """Phase 31's files in directory ``d``, by this script's own
+    writers: an OBJ with an MTL and a 24 x 20 RGBA PNG texture whose
+    alpha runs below 255 (Paeth-filtered rows); a .gltf quad with a
+    data-URI RGB PNG; a .glb cube whose PNG lies in its binary chunk;
+    a .usda cube under two Xforms. Returns their paths."""
+    import base64
+    import json
+    import struct
+
+    paths = {}
+    pos, tris, _ = _grid_mesh(12, 4.0)
+    tex = np.zeros((20, 24, 4), np.uint8)
+    tex[..., :3] = _checker(24, ((200, 60, 40), (40, 160, 60)))[:20]
+    tex[..., 3] = np.linspace(40, 255, 24).astype(np.uint8)[None, :]
+    with open(os.path.join(d, "ground.png"), "wb") as f:
+        f.write(png_bytes(tex, filters=4))
+    with open(os.path.join(d, "ground.mtl"), "w") as f:
+        f.write("newmtl ground\nKd 0.9 0.85 0.8\nNs 200\n"
+                "map_Kd ground.png\n")
+    with open(os.path.join(d, "ground.obj"), "w") as f:
+        f.write("mtllib ground.mtl\nusemtl ground\n")
+        f.writelines(f"v {x:.6f} {y:.6f} {z:.6f}\n" for x, y, z in pos)
+        # negative (relative) indices on every other face
+        nv = len(pos)
+        f.writelines(
+            f"f {a + 1} {b + 1} {c + 1}\n" if k % 2 else
+            f"f {a - nv} {b - nv} {c - nv}\n"
+            for k, (a, b, c) in enumerate(tris))
+    paths["obj"] = os.path.join(d, "ground.obj")
+
+    quad = np.array([[-1, 0, -1], [1, 0, -1], [1, 0, 1], [-1, 0, 1]],
+                    np.float32)
+    quad_uv = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
+    png = png_bytes(_checker(8, ((255, 0, 0), (0, 0, 255))), filters=1)
+    doc, blob = _gltf_doc(quad, np.array([[0, 1, 2], [0, 2, 3]], np.int32),
+                          quad_uv, "quad", {
+                              "uri": "data:image/png;base64,"
+                              + base64.b64encode(png).decode()})
+    doc["buffers"] = [{"uri": "data:application/octet-stream;base64,"
+                       + base64.b64encode(blob).decode(),
+                       "byteLength": len(blob)}]
+    paths["gltf"] = os.path.join(d, "quad.gltf")
+    with open(paths["gltf"], "w") as f:
+        json.dump(doc, f)
+
+    cpos, ctris, cuv = _cube()
+    png = png_bytes(_checker(16, ((250, 220, 40), (30, 30, 30))),
+                    filters=[0, 1, 2, 3, 4] * 3 + [2])
+    doc, blob = _gltf_doc(cpos, ctris, cuv, "cube", {
+        "bufferView": 3, "mimeType": "image/png"})
+    pad = -len(blob) % 4
+    doc["bufferViews"].append({"buffer": 0, "byteOffset": len(blob) + pad,
+                               "byteLength": len(png)})
+    blob = blob + b"\0" * pad + png
+    blob += b"\0" * (-len(blob) % 4)
+    doc["buffers"] = [{"byteLength": len(blob)}]
+    js = json.dumps(doc).encode()
+    js += b" " * (-len(js) % 4)
+    glb = (struct.pack("<II", len(js), 0x4E4F534A) + js
+           + struct.pack("<II", len(blob), 0x004E4942) + blob)
+    paths["glb"] = os.path.join(d, "cube.glb")
+    with open(paths["glb"], "wb") as f:
+        f.write(struct.pack("<III", 0x46546C67, 2, 12 + len(glb)) + glb)
+
+    pts = ", ".join(f"({x:g}, {y:g}, {z:g})" for x, y, z in cpos)
+    quads = [(0, 1, 3, 2), (4, 6, 7, 5), (0, 4, 5, 1), (2, 3, 7, 6),
+             (0, 2, 6, 4), (1, 5, 7, 3)]
+    fvi = ", ".join(str(i) for q in quads for i in q)
+    paths["usda"] = os.path.join(d, "pillar.usda")
+    with open(paths["usda"], "w") as f:
+        f.write(f'''#usda 1.0
+def Xform "root"
+{{
+    double3 xformOp:translate = (2, 1.5, 0)
+    uniform token[] xformOpOrder = ["xformOp:translate"]
+
+    def Xform "tall" (
+        kind = "component"
+    )
+    {{
+        float3 xformOp:scale = (0.4, 0.4, 1.2)
+        float3 xformOp:rotateXYZ = (0, 0, 30)
+        uniform token[] xformOpOrder = ["xformOp:rotateXYZ", "xformOp:scale"]
+
+        def Mesh "pillar"
+        {{
+            int[] faceVertexCounts = [4, 4, 4, 4, 4, 4]
+            int[] faceVertexIndices = [{fvi}]
+            point3f[] points = [{pts}]
+        }}
+    }}
+}}
+''')
+    return paths
+
+
+def merge_assets(parts):
+    """One ImportedAssets of several: material and texture indices
+    offset."""
+    from madrona_tpu_torch.assets.importer import ImportedAssets
+
+    meshes, mats, texs = [], [], []
+    for a in parts:
+        for m in a.meshes:
+            meshes.append(dataclasses.replace(
+                m, material=m.material + len(mats) if m.material >= 0
+                else -1))
+        for m in a.materials:
+            mats.append(dataclasses.replace(
+                m, texture=m.texture + len(texs) if m.texture >= 0 else -1))
+        texs += a.textures
+    return ImportedAssets(meshes, mats, texs)
+
+
+def asset_scene(n_obj, w, views, device, seed=0):
+    """Instances [W, I, ...] of the imported objects (the ground, the
+    quad standing up, the cube, the pillar; each world shifted and
+    turned a little) and cameras [W, V, ...] around them looking in."""
+    import torch
+
+    rs = np.random.RandomState(seed)
+    base = np.array([[0, 0, 0], [-1.5, 1.0, 1.2], [0.5, -1.0, 1.0],
+                     [0, 0, 0.4]], np.float32)[:n_obj]
+    pos = base[None] + rs.uniform(-0.3, 0.3, (w, n_obj, 3)).astype(
+        np.float32) * np.array([1, 1, 0], np.float32)
+    yaw = rs.uniform(-0.5, 0.5, (w, n_obj)).astype(np.float32)
+    rot = np.zeros((w, n_obj, 4), np.float32)
+    rot[..., 0] = np.cos(yaw / 2)
+    rot[..., 3] = np.sin(yaw / 2)
+    scale = np.ones((w, n_obj, 3), np.float32)
+    obj = np.broadcast_to(np.arange(n_obj, dtype=np.int32), (w, n_obj))
+    mask = np.ones((w, views, n_obj), bool)
+    ang = (np.arange(views) / views * 2 * np.pi)[None, :] + rs.uniform(
+        -0.2, 0.2, (w, 1))
+    cam_pos = np.stack([5.5 * np.sin(ang), -5.5 * np.cos(ang),
+                        np.full_like(ang, 2.2)], -1).astype(np.float32)
+    # look toward the centre (+y turned by ang about z), pitched down
+    q_yaw = np.stack([np.cos(ang / 2), 0 * ang, 0 * ang, np.sin(ang / 2)],
+                     -1)
+    pitch = -0.3
+    q_pitch = np.array([np.cos(pitch / 2), np.sin(pitch / 2), 0, 0])
+    cam_rot = np.stack([        # q_yaw * q_pitch
+        q_yaw[..., 0] * q_pitch[0], q_yaw[..., 0] * q_pitch[1],
+        q_yaw[..., 3] * q_pitch[1], q_yaw[..., 3] * q_pitch[0]],
+        -1).astype(np.float32)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)  # noqa
+    return tuple(t(x) for x in (pos, rot, scale, obj, mask, cam_pos,
+                                cam_rot))
+
+
+def check_assets(kernels, card):
+    """Phase 31. Returns (launches a counter, the render's planes,
+    options and ray count for the timing line)."""
+    import tempfile
+
+    import torch
+    from madrona_tpu_torch.assets.importer import (ImportedAssets,
+                                                   import_assets)
+    from madrona_tpu_torch.assets.usd import load_usd
+    from madrona_tpu_torch.ops import raycast_cuda as rck
+    from madrona_tpu_torch.render import blas as rblas
+    from madrona_tpu_torch.render import kernel as rkernel
+    from madrona_tpu_torch.render.lights import make_lights
+    from madrona_tpu_torch.render.raycast import RenderConfig
+
+    with tempfile.TemporaryDirectory() as d:
+        paths = write_assets(d)
+        parts = [import_assets(paths[k]) for k in ("obj", "gltf", "glb")]
+        parts.append(ImportedAssets(load_usd(paths["usda"]), [], []))
+    assets = merge_assets(parts)
+    sizes = [a.data.shape[:2] for a in assets.textures]
+    alpha = assets.textures[0].data[..., 3]
+    if not (len(assets.meshes) == 4 and len(assets.textures) == 3
+            and int(alpha.min()) < 255 and sizes[0] == (20, 24)
+            and [m.material for m in assets.meshes] == [0, 1, 2, -1]):
+        raise AssertionError(f"assets: imported {len(assets.meshes)} meshes,"
+                             f" textures {sizes}")
+    blas, mats, _ = rblas.bake_assets_blas(assets, tex_size=ASSET_TEX,
+                                           device=DEV)
+    tris = [len(m.indices) for m in assets.meshes]
+    print(f"assets: {len(assets.meshes)} meshes of {tris} triangles "
+          f"(OBJ + MTL, .gltf, .glb, .usda), textures {sizes} resampled to "
+          f"{ASSET_TEX}^2 in the atlas, {len(assets.materials)} materials; "
+          f"BLAS {tuple(blas.node_min.shape)} nodes, max leaf "
+          f"{blas.max_leaf}")
+
+    # B5 on the imported scene at full width
+    cfg = RenderConfig(width=ASSET_RENDER, height=ASSET_RENDER, t_max=40.0,
+                       shadows=True)
+    scene = asset_scene(len(assets.meshes), ASSET_W, ASSET_VIEWS, DEV)
+    lights = make_lights(ASSET_W, [{"direction": (0.3, -0.4, -1.0),
+                                    "cast_shadow": True}], device=DEV)
+    if not rkernel.kernel_eligible(cfg, blas, lights, 0, scene[0].shape[1]):
+        raise AssertionError("assets: the scene is not the kernel's")
+    for k in kernels:
+        k.launches = 0
+    rgb, dep = rblas.render_views_blas(cfg, blas, *scene, materials=mats,
+                                       lights=lights)
+    torch.cuda.synchronize()
+    launches = [k.launches for k in kernels]
+    want = want_of(kernels, {rck.KERNEL: 1})
+    expect_launches("assets render_views_blas", kernels, launches, want)
+    hit = float((dep < cfg.t_max).float().mean())
+    if not (bool(torch.isfinite(rgb).all()) and 0.3 < hit < 1.0
+            and tuple(rgb.shape) == (ASSET_W, ASSET_VIEWS, ASSET_RENDER,
+                                     ASSET_RENDER, 3)):
+        raise AssertionError(f"assets render: hit share {hit}, shape "
+                             f"{tuple(rgb.shape)}")
+    planes, opts, n_rays = rkernel.kernel_inputs(cfg, blas, *scene,
+                                                 materials=mats,
+                                                 lights=lights)
+    worst, out = raycast_compare("imported assets", planes, opts)
+    textured = float((planes[1][:, rck.A_TEX] >= 0).float().mean())
+    print(f"assets render: {ASSET_W} worlds x {ASSET_VIEWS} views of "
+          f"{ASSET_RENDER}^2 through the raycast kernel, hit share "
+          f"{hit:.3f}, textured rows {textured:.3f}, occluded share "
+          f"{float(out[:, rck.O_OCC, :n_rays].mean()):.3f}")
+
+    # the walkers on the card: the same hits
+    rs = np.random.RandomState(8)
+    n_obj = len(assets.meshes)
+    obj = torch.from_numpy(rs.randint(0, n_obj, WALK_RAYS).astype(
+        np.int32)).to(DEV)
+    # from above, toward points of the objects' unit box
+    o = (rs.uniform(-4, 4, (WALK_RAYS, 3)) + [0, 0, 6]).astype(np.float32)
+    dirs = (rs.uniform(-1, 1, (WALK_RAYS, 3)) - o).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    live = torch.from_numpy(rs.rand(WALK_RAYS) < 0.95).to(DEV)
+    rays = (obj, torch.from_numpy(o).to(DEV), torch.from_numpy(dirs).to(DEV),
+            live, 40.0)
+    wide32 = rblas.widen_blas(blas)
+    wide16 = rblas.widen_blas(blas, "bfloat16")
+    hits = {
+        "gather": rblas.trace_rays_blas(blas, *rays),
+        "onehot": rblas.trace_rays_blas_onehot(blas, *rays),
+        "wide f32": rblas.trace_rays_blas4(wide32, *rays),
+        "wide bf16": rblas.trace_rays_blas4(wide16, *rays),
+    }
+    ref = hits["gather"]
+    if not all(torch.equal(a, b) for a, b in zip(hits["onehot"], ref)):
+        raise AssertionError("walkers: onehot != gather")
+    hit_share = float((ref[1] >= 0).float().mean())
+    for name in ("wide f32", "wide bf16"):
+        t, tri = hits[name][:2]
+        if not torch.equal(tri >= 0, ref[1] >= 0):
+            raise AssertionError(f"walkers: {name} hits differ")
+        h = ref[1] >= 0
+        dt = float(((t - ref[0]).abs() / ref[0].abs().clamp(min=1.0))[h]
+                   .max()) if bool(h.any()) else 0.0
+        other = (tri != ref[1]) & h
+        tie = ((t - ref[0]).abs() <= 1e-5 * ref[0].abs().clamp(min=1.0))
+        if dt > WALK_T_TOL or not bool((tie | ~other).all()):
+            raise AssertionError(f"walkers: {name} t off by {dt}")
+        print(f"walkers [{name}] vs gather: hits equal ({hit_share:.3f} of "
+              f"{WALK_RAYS} rays), t within {dt:.3g} relative, "
+              f"{int(other.sum())} triangles differ at ties")
+    print("walkers [onehot] vs gather: t, tri, u, v equal")
+
+    # ray_chunk on the plain BLAS tier (the kernel tier off): the planes
+    # of the default (1024-ray chunks) again
+    few = tuple(x[:ASSET_PLAIN_W] for x in scene)
+    lt = lights.map(lambda a: a[:ASSET_PLAIN_W])
+    budget = rkernel.MAX_FLAT_TRIS
+    rkernel.MAX_FLAT_TRIS = 0
+    try:
+        for k in kernels:
+            k.launches = 0
+        ref_p = rblas.render_views_blas(cfg, blas, *few, materials=mats,
+                                        lights=lt)
+        for walker, chunk in (("auto", ASSET_CHUNK), ("onehot", 0)):
+            got_p = rblas.render_views_blas(
+                dataclasses.replace(cfg, ray_chunk=chunk,
+                                    blas_walker=walker), blas, *few,
+                materials=mats, lights=lt)
+            if not all(torch.equal(a, b) for a, b in zip(got_p, ref_p)):
+                raise AssertionError(f"plain tier, walker {walker}, "
+                                     f"ray_chunk {chunk}: planes differ")
+        torch.cuda.synchronize()
+        if any(k.launches for k in kernels):
+            raise AssertionError("the plain BLAS tier launched a kernel")
+    finally:
+        rkernel.MAX_FLAT_TRIS = budget
+    print(f"plain BLAS tier, {ASSET_PLAIN_W} worlds: ray_chunk "
+          f"{ASSET_CHUNK} and the onehot walker give the default's planes "
+          "bit for bit; no kernel launched")
+    ms = timed_device(lambda: rck.raytrace(*planes, **opts), 20, 2)
+    print(f"raycast on the imported scene: device {ms:.4f} ms ({card})")
+    return launches, (planes, opts, n_rays), worst
+
+
+def check_ppo_pixels(ppo_px, kernels, b_kernels, card):
+    """Phase 32: examples/torch_train_ppo_pixels.py at its defaults (256
+    worlds, 16 x 16 RGBD, horizon 16, two epochs) on the card, on each
+    tier. ``b_kernels``: the counters of B1, B2, B3 and B5, each of
+    which must launch once an environment step (16 an update, and the
+    first zero-action step), the others never. Returns {tier: launches}."""
+    import torch
+
+    out = {}
+    for tier, updates in PIX_UPDATES:
+        cfg = ppo_px.VPPOConfig()
+        for k in kernels:
+            k.launches = 0
+        t_make = time.perf_counter()
+        sim, step_fn, state, obs, net, obs_of = ppo_px.make_train(
+            PIX_W, cfg, seed=0, render_size=PIX_RENDER, tier=tier,
+            device=DEV)
+        t_make = time.perf_counter() - t_make
+        opt = ppo_px.adam_init(net)
+        gen = ppo_px.generator(7, sim.device)
+        before = [p.detach().clone() for p in net.parameters()]
+        secs, rews = [], []
+        for _ in range(updates):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, obs, frames = ppo_px.update(step_fn, state, obs, net, opt,
+                                               gen, cfg, obs_of)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            rews.append(float(frames["rew"].mean()))
+        launches = [k.launches for k in kernels]
+        steps = cfg.horizon * updates + 1
+        expect_launches(f"ppo pixels {tier}", kernels, launches,
+                        want_of(kernels, {k: steps for k in b_kernels}))
+        params = list(net.parameters())
+        if not all(bool(torch.isfinite(p).all()) for p in params):
+            raise AssertionError(f"ppo pixels {tier}: parameters not finite")
+        moved = max(float((a.detach() - b).abs().max())
+                    for a, b in zip(params, before))
+        if not moved > 0:
+            raise AssertionError(f"ppo pixels {tier}: nothing moved")
+        steady = secs[1:] or secs
+        upd_s = len(steady) / sum(steady)
+        wall_ms = 1e3 / upd_s
+        events = dev_ms = None
+        t_prof = 0.0
+        if tier == PIX_PROFILED:
+            # the device time of one more update under the profiler (the
+            # device alone: some 50,000 events take 13 s to collect),
+            # over the wall time of an update without it
+            t_prof = time.perf_counter()
+            events, dev_ms = device_profile(
+                lambda: ppo_px.update(step_fn, state, obs, net, opt, gen, cfg,
+                                      obs_of), 1, host=False)
+            t_prof = time.perf_counter() - t_prof
+            if dev_ms is None:
+                raise AssertionError(f"ppo pixels {tier}: the profiler "
+                                     "recorded no device time")
+        busy = "not measured" if dev_ms is None else f"{dev_ms / wall_ms:.4f}"
+        print(f"ppo pixels [{tier}]: {PIX_W} worlds, {updates} updates of "
+              f"horizon {cfg.horizon} x {cfg.epochs} epochs, mean step "
+              f"rewards {[round(r, 4) for r in rews]}, parameters moved by "
+              f"up to {moved:.4g}, finite; update s "
+              f"{[round(x, 3) for x in secs]}"
+              f"; {upd_s:.3f} updates/s and {upd_s * cfg.horizon * PIX_W:.1f}"
+              f" env-steps/s with the render and the learner (after the "
+              f"first); one profiled update: {events} device events, "
+              f"{dev_ms} device ms, busy {busy} of {wall_ms:.1f} ms "
+              f"(profiled in {t_prof:.1f} s; make_train {t_make:.1f} s) "
+              f"({card})")
+        out[f"ppo_pixels_{tier}"] = launches
+        del sim, state, obs, net, opt
+        torch.cuda.empty_cache()
+    return out
+
+
+def state_leaves(state):
+    """(path, tensor) of every tensor of a SimState."""
+    import torch
+
+    out = []
+
+    def walk(x, path):
+        if dataclasses.is_dataclass(x):
+            for f in dataclasses.fields(x):
+                walk(getattr(x, f.name), path + (f.name,))
+        elif isinstance(x, dict):
+            for k in sorted(x):
+                walk(x[k], path + (k,))
+        elif torch.is_tensor(x):
+            out.append(("/".join(path), x))
+
+    walk(state, ())
+    return out
+
+
+def check_checkpoints(make_sim, EscapeRoom, ppo, ckpt, kernels, card):
+    """Phase 33: masked save and restore of the Escape Room state at
+    CKPT_W worlds (half the worlds), its npz round trip bit for bit, and
+    a Cartpole PPO run saved after CKPT_PPO_UPDATES updates and resumed
+    in a fresh make_train, bit-identical to the straight run."""
+    import tempfile
+
+    import torch
+
+    acts = EscapeRoom.random_actions(np.random.RandomState(4),
+                                     3 * CKPT_STEPS, CKPT_W).to(DEV)
+    zero = torch.zeros((CKPT_W,), dtype=torch.int32, device=DEV)
+    sim = make_sim(EscapeRoom(), num_worlds=CKPT_W, seed=3, device=DEV)
+    fn = sim.step_fn()
+
+    def run(s, t0):
+        for t in range(t0, t0 + CKPT_STEPS):
+            s, _ = fn(s, {"action": acts[t], "reset": zero})
+        return s
+
+    s0 = run(sim.state, 0)
+    s1 = run(s0, CKPT_STEPS)
+    half = torch.arange(CKPT_W, device=DEV) % 2 == 0
+    buf = ckpt.save_worlds(ckpt.snapshot(s0), s1, half)
+    s2 = run(s1, 2 * CKPT_STEPS)
+    s3 = ckpt.restore_worlds(s2, buf, half)
+    n_leaves = 0
+    for (path, a), (_, b1), (_, b2) in zip(state_leaves(s3),
+                                           state_leaves(s1),
+                                           state_leaves(s2)):
+        n_leaves += 1
+        if a.dim() == 0:
+            ok = torch.equal(a, b2)
+        else:
+            ok = torch.equal(a[half], b1[half]) and torch.equal(a[~half],
+                                                                b2[~half])
+        if not ok:
+            raise AssertionError(f"restore_worlds: {path} differs")
+    s4 = run(s3, 0)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "state.npz")
+        t0 = time.perf_counter()
+        ckpt.save_npz(path, s4)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        back = ckpt.load_npz(path, s4)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    for (p, a), (_, b) in zip(state_leaves(back), state_leaves(s4)):
+        if a.device != b.device or a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"npz round trip: {p} differs")
+    print(f"checkpoint: escape_room {CKPT_W} worlds, save_worlds / "
+          f"restore_worlds on half of them: {n_leaves} tensors as expected "
+          f"(the step counter live); npz round trip bit for bit ({size} B, "
+          f"save {save_s:.3f} s, load {load_s:.3f} s) ({card})")
+    del sim, s0, s1, s2, s3, s4, buf, back
+
+    # PPO on Cartpole: 2 updates, save, a fresh make_train, 2 more
+    cfg = ppo.PPOConfig()
+
+    def train(n, resume=None):
+        sim_, pi, v = ppo.make_train(CKPT_PPO_W, cfg, seed=0, device=DEV)
+        gen = ppo.generator(100, sim_.device)
+        st = sim_.state
+        if resume is not None:
+            st = ckpt.load_npz(resume[0], st)
+            ppo.load_learner(resume[1], (pi, v), gen)
+        f = sim_.step_fn()
+        for _ in range(n):
+            st, _ = ppo.update(f, st, pi, v, gen, cfg, ppo.cart_obs)
+        return st, (pi, v), gen
+
+    for k in kernels:
+        k.launches = 0
+    st_a, nets_a, _ = train(2 * CKPT_PPO_UPDATES)
+    st_b, nets_b, gen_b = train(CKPT_PPO_UPDATES)
+    with tempfile.TemporaryDirectory() as d:
+        paths = (os.path.join(d, "sim.npz"), os.path.join(d, "learner.npz"))
+        ckpt.save_npz(paths[0], st_b)
+        ppo.save_learner(paths[1], nets_b, gen_b)
+        st_c, nets_c, _ = train(CKPT_PPO_UPDATES, resume=paths)
+    bad = [i for i, (a, c) in enumerate(zip(
+        [p for n in nets_a for p in n.parameters()],
+        [p for n in nets_c for p in n.parameters()])) if not torch.equal(a, c)]
+    bad += [p for (p, a), (_, c) in zip(state_leaves(st_a),
+                                        state_leaves(st_c))
+            if not torch.equal(a, c)]
+    if bad:
+        raise AssertionError(f"ppo resume: differs from the straight run at "
+                             f"{bad}")
+    launches = [k.launches for k in kernels]
+    if any(launches):
+        raise AssertionError(f"ppo resume: kernels launched {launches}")
+    print(f"checkpoint: cartpole PPO at {CKPT_PPO_W} worlds, "
+          f"{CKPT_PPO_UPDATES} updates, saved (sim npz, parameters and the "
+          f"action generator's state), resumed in a fresh make_train for "
+          f"{CKPT_PPO_UPDATES} more: bit-identical to "
+          f"{2 * CKPT_PPO_UPDATES} straight updates ({card})")
+
+
 def main() -> int:
     import torch
 
@@ -3115,7 +3778,9 @@ def main() -> int:
     from madrona_tpu_torch.models.projectiles import Projectiles
     import torch_train_ppo
     import torch_train_ppo_overcooked
+    import torch_train_ppo_pixels
     import torch_train_reinforce
+    from madrona_tpu_torch.utils import checkpoint
     from madrona_tpu_torch.ops import (
         broadphase_cuda, contacts_cuda, cuda_build, fused_cuda,
         hh_narrowphase_cuda, lidar_cuda, raycast_cuda, solver_cuda,
@@ -3741,10 +4406,41 @@ def main() -> int:
                "hh_narrowphase_sublane": hh_tiers[0],
                "hh_narrowphase": hh_tiers[1],
                "fused_step": fused_cuda.KERNEL}
+
+    lap("31")
+    # ---- 31: the asset importers, bake_assets_blas and B5 on the
+    # imported scene; the walkers and ray_chunk on the card
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    later = {}
+    later["assets"], _, asset_err = check_assets(all_k, card)
+    print(f"phase 31: {time.perf_counter() - t0:.1f} s ({card})")
+
+    lap("32")
+    # ---- 32: the pixel learner at its defaults on both render tiers
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    later.update(check_ppo_pixels(
+        torch_train_ppo_pixels, all_k,
+        [broadphase_cuda.KERNEL, contacts_cuda.KERNEL, solver_cuda.KERNEL,
+         raycast_cuda.KERNEL], card))
+    print(f"phase 32: {time.perf_counter() - t0:.1f} s ({card})")
+
+    lap("33")
+    # ---- 33: per-world checkpoints, the npz round trip, a PPO resume
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    check_checkpoints(make_sim, EscapeRoom, torch_train_ppo, checkpoint,
+                      all_k, card)
+    print(f"phase 33: {time.perf_counter() - t0:.1f} s ({card})")
     for row in rows:
         i = all_k.index(counter[row["name"]])
         row["launches_by_path"] = {
             path: counts[i] for path, (counts, _) in new_paths.items()}
+        row["launches_by_path"].update(
+            {path: counts[i] for path, counts in later.items()})
+        if row["name"] == "raycast_blas":
+            row["max_abs_err"] = max(row["max_abs_err"], asset_err)
 
     lap("end")
     print(json.dumps({"kernels": rows}))

@@ -25,6 +25,7 @@ import os
 import sys
 import time
 
+import numpy as np
 import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -209,6 +210,28 @@ def make_train(num_worlds: int, cfg: PPOConfig, seed: int = 0,
     pi = MLP([4, 64, 64, 2], generator=gen, device=sim.device)
     v = MLP([4, 64, 64, 1], generator=gen, device=sim.device)
     return sim, pi, v
+
+
+def save_learner(path: str, nets, gen: torch.Generator) -> None:
+    """The learner's side of a checkpoint, beside the sim state's npz
+    (``madrona_tpu_torch.utils.checkpoint.save_npz``): every parameter
+    of ``nets`` in order, as ``p{net}_{i}``, and the action generator's
+    state, so that a resumed run draws the same actions."""
+    arrays = {f"p{j}_{i}": p.detach().cpu().numpy()
+              for j, net in enumerate(nets)
+              for i, p in enumerate(net.parameters())}
+    np.savez(path, gen=gen.get_state().numpy(), **arrays)
+
+
+def load_learner(path: str, nets, gen: torch.Generator) -> None:
+    """Restore what :func:`save_learner` wrote into ``nets`` and ``gen``
+    in place."""
+    with np.load(path) as blob:
+        with torch.no_grad():
+            for j, net in enumerate(nets):
+                for i, p in enumerate(net.parameters()):
+                    p.copy_(torch.from_numpy(blob[f"p{j}_{i}"]))
+        gen.set_state(torch.from_numpy(blob["gen"]))
 
 
 def episode_length(frames):

@@ -1,13 +1,18 @@
-"""Assets: the host-side mesh BVH build and the material/texture records.
+"""Asset pipeline: import meshes from disk, bake BVHs.
 
-Port of the parts of ``madrona_tpu/assets`` that the renderer's mesh-BVH
-tier needs: :mod:`.bvh` (the SAH build, from the port's own C++ source
-``native/bvh_build.cpp``) and the two records of :mod:`.importer` that a
-material bake takes. The OBJ, glTF and MTL loaders are not ported.
+Port of ``madrona_tpu/assets``: the OBJ, glTF (.gltf / .glb) and MTL
+importers with their materials and textures (:mod:`.importer`, PNG
+textures decoded by :mod:`.png`), the ASCII USD importer with its
+xform hierarchy flattened (:mod:`.usd`) and the host-side SAH mesh BVH
+build (:mod:`.bvh`, from the port's own C++ source
+``native/bvh_build.cpp``).
 """
 
+from .importer import ImportedMesh, load_obj, load_gltf, import_from_disk
+from .usd import load_usd
 from .bvh import MeshBVH, build_mesh_bvh
-from .importer import ImportedMaterial, ImportedTexture
 
-__all__ = ["MeshBVH", "build_mesh_bvh", "ImportedMaterial",
-           "ImportedTexture"]
+__all__ = [
+    "ImportedMesh", "load_obj", "load_gltf", "load_usd", "import_from_disk",
+    "MeshBVH", "build_mesh_bvh",
+]

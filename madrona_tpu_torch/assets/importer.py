@@ -1,15 +1,38 @@
-"""Imported material and texture records.
+"""Mesh importers: OBJ, glTF 2.0 (.gltf / .glb), MTL and USD dispatch.
 
-Port of the two dataclasses of ``madrona_tpu/assets/importer.py`` that
-``render/materials.py::bake_materials`` takes. The file loaders (OBJ,
-glTF, MTL) are not ported.
+Port of ``madrona_tpu/assets/importer.py``, the reference's
+``AssetImporter::importFromDisk`` dispatching on the file extension. OBJ
+follows the JAX package's Python parser (``_load_obj_py``: 1-based and
+negative indices, polygon fan triangulation); the port loads no native
+OBJ library. glTF is parsed in Python (data URIs, ``.bin`` buffers and
+``.glb``), with its materials and images; an OBJ's ``.mtl`` gives Kd,
+Ns and map_Kd. Images are decoded by :func:`.png.decode_png` (the JAX
+package uses PIL, which the machines with the card lack): PNG only, see
+that module for the variants it decodes.
 """
 
 from __future__ import annotations
 
+import base64
 import dataclasses
+import json
+import os
+import struct
+from typing import List
 
 import numpy as np
+
+from .png import decode_png
+
+
+@dataclasses.dataclass
+class ImportedMesh:
+    positions: np.ndarray    # [V, 3] f32
+    normals: np.ndarray      # [V, 3] f32 (zeros if absent)
+    indices: np.ndarray      # [T, 3] i32
+    name: str = ""
+    uvs: np.ndarray = None   # [V, 2] f32 (None if absent)
+    material: int = -1       # index into ImportedAssets.materials
 
 
 @dataclasses.dataclass
@@ -21,7 +44,7 @@ class ImportedMaterial:
     base_color: np.ndarray = None      # [4] RGBA factor
     metallic: float = 0.0
     roughness: float = 1.0
-    texture: int = -1                  # index into the texture list
+    texture: int = -1                  # index into ImportedAssets.textures
 
     def __post_init__(self):
         if self.base_color is None:
@@ -34,3 +57,274 @@ class ImportedTexture:
 
     name: str
     data: np.ndarray                   # [H, W, 4] u8
+
+
+@dataclasses.dataclass
+class ImportedAssets:
+    """Everything one asset file contributes (the reference's
+    ``ImportedAssets``)."""
+
+    meshes: List[ImportedMesh]
+    materials: List[ImportedMaterial]
+    textures: List[ImportedTexture]
+
+
+def _decode_image(data: bytes, name: str = "") -> ImportedTexture:
+    return ImportedTexture(name, decode_png(data))
+
+
+def load_obj(path: str) -> ImportedMesh:
+    """Positions and fan-triangulated faces of an OBJ file (normals
+    zero, as the JAX package's parser leaves them)."""
+    pos: List[List[float]] = []
+    tris: List[List[int]] = []
+    with open(path) as f:
+        for line in f:
+            if line.startswith("v "):
+                pos.append([float(x) for x in line.split()[1:4]])
+            elif line.startswith("f "):
+                refs = []
+                for tok in line.split()[1:]:
+                    vi = int(tok.split("/")[0])
+                    refs.append(vi - 1 if vi > 0 else len(pos) + vi)
+                for k in range(1, len(refs) - 1):
+                    tris.append([refs[0], refs[k], refs[k + 1]])
+    p = np.asarray(pos, np.float32)
+    return ImportedMesh(
+        p, np.zeros_like(p), np.asarray(tris, np.int32),
+        os.path.basename(path),
+    )
+
+
+# ------------------------------------------------------------------ glTF
+
+_CTYPE = {5120: np.int8, 5121: np.uint8, 5122: np.int16,
+          5123: np.uint16, 5125: np.uint32, 5126: np.float32}
+_NCOMP = {"SCALAR": 1, "VEC2": 2, "VEC3": 3, "VEC4": 4}
+
+
+def load_gltf(path: str) -> List[ImportedMesh]:
+    """Geometry-only glTF read (see ``import_assets`` for materials)."""
+    return _load_gltf_raw(path)[0]
+
+
+def _load_gltf_raw(path: str):
+    """Minimal glTF 2.0 reader: embedded/.bin buffers, triangle prims,
+    UVs + material indices (reference: src/importer/gltf.cpp)."""
+    if path.endswith(".glb"):
+        with open(path, "rb") as f:
+            magic, _ver, _len = struct.unpack("<III", f.read(12))
+            if magic != 0x46546C67:
+                raise ValueError("not a glb file")
+            clen, ctype = struct.unpack("<II", f.read(8))
+            doc = json.loads(f.read(clen))
+            buffers = []
+            while True:
+                hdr = f.read(8)
+                if len(hdr) < 8:
+                    break
+                clen, ctype = struct.unpack("<II", hdr)
+                buffers.append(f.read(clen))
+    else:
+        with open(path) as f:
+            doc = json.load(f)
+        buffers = []
+        base = os.path.dirname(path)
+        for buf in doc.get("buffers", []):
+            uri = buf["uri"]
+            if uri.startswith("data:"):
+                buffers.append(base64.b64decode(uri.split(",", 1)[1]))
+            else:
+                with open(os.path.join(base, uri), "rb") as bf:
+                    buffers.append(bf.read())
+
+    def read_accessor(idx):
+        acc = doc["accessors"][idx]
+        view = doc["bufferViews"][acc["bufferView"]]
+        dtype = _CTYPE[acc["componentType"]]
+        ncomp = _NCOMP[acc["type"]]
+        offset = view.get("byteOffset", 0) + acc.get("byteOffset", 0)
+        data = buffers[view.get("buffer", 0)]
+        count = acc["count"]
+        stride = view.get("byteStride") or ncomp * np.dtype(dtype).itemsize
+        if stride == ncomp * np.dtype(dtype).itemsize:
+            arr = np.frombuffer(
+                data, dtype, count * ncomp, offset
+            ).reshape(count, ncomp)
+        else:
+            arr = np.zeros((count, ncomp), dtype)
+            for i in range(count):
+                arr[i] = np.frombuffer(
+                    data, dtype, ncomp, offset + i * stride
+                )
+        return arr
+
+    out = []
+    for mesh in doc.get("meshes", []):
+        for prim in mesh.get("primitives", []):
+            if prim.get("mode", 4) != 4:   # triangles only
+                continue
+            pos = read_accessor(prim["attributes"]["POSITION"]).astype(
+                np.float32
+            )
+            nrm = (
+                read_accessor(prim["attributes"]["NORMAL"]).astype(np.float32)
+                if "NORMAL" in prim["attributes"]
+                else np.zeros_like(pos)
+            )
+            uv = (
+                read_accessor(
+                    prim["attributes"]["TEXCOORD_0"]
+                ).astype(np.float32)
+                if "TEXCOORD_0" in prim["attributes"]
+                else None
+            )
+            if "indices" in prim:
+                idx = read_accessor(prim["indices"]).reshape(-1, 3)
+            else:
+                idx = np.arange(len(pos), dtype=np.int32).reshape(-1, 3)
+            out.append(
+                ImportedMesh(
+                    pos, nrm, idx.astype(np.int32),
+                    mesh.get("name", ""),
+                    uvs=uv, material=prim.get("material", -1),
+                )
+            )
+    return out, doc, buffers
+
+
+def _gltf_materials(doc, buffers, base_dir):
+    """Parse glTF materials + decode their images (gltf.cpp's material
+    section)."""
+    textures = []
+    tex_of_image = {}
+
+    def image_texture(img_idx):
+        if img_idx in tex_of_image:
+            return tex_of_image[img_idx]
+        img = doc["images"][img_idx]
+        if "uri" in img:
+            uri = img["uri"]
+            if uri.startswith("data:"):
+                data = base64.b64decode(uri.split(",", 1)[1])
+            else:
+                with open(os.path.join(base_dir, uri), "rb") as f:
+                    data = f.read()
+        else:
+            view = doc["bufferViews"][img["bufferView"]]
+            off = view.get("byteOffset", 0)
+            data = buffers[view.get("buffer", 0)][
+                off:off + view["byteLength"]
+            ]
+        tex = _decode_image(data, img.get("name", f"image{img_idx}"))
+        tex_of_image[img_idx] = len(textures)
+        textures.append(tex)
+        return tex_of_image[img_idx]
+
+    materials = []
+    for m in doc.get("materials", []):
+        pbr = m.get("pbrMetallicRoughness", {})
+        tex = -1
+        if "baseColorTexture" in pbr:
+            src = doc["textures"][
+                pbr["baseColorTexture"]["index"]
+            ].get("source")
+            if src is not None:
+                tex = image_texture(src)
+        materials.append(ImportedMaterial(
+            name=m.get("name", ""),
+            base_color=np.asarray(
+                pbr.get("baseColorFactor", [1, 1, 1, 1]), np.float32
+            ),
+            metallic=float(pbr.get("metallicFactor", 1.0)),
+            roughness=float(pbr.get("roughnessFactor", 1.0)),
+            texture=tex,
+        ))
+    return materials, textures
+
+
+def import_from_disk(path: str) -> List[ImportedMesh]:
+    """AssetImporter::importFromDisk dispatch (geometry only)."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".obj":
+        return [load_obj(path)]
+    if ext in (".gltf", ".glb"):
+        return load_gltf(path)
+    if ext in (".usd", ".usda"):
+        from .usd import load_usd
+
+        return load_usd(path)
+    raise ValueError(f"unsupported asset format: {ext}")
+
+
+def _load_obj_mtl(path: str):
+    """OBJ sidecar .mtl: Kd, Ns and map_Kd of each material; the mesh's
+    first ``usemtl`` wins (reference obj.cpp)."""
+    mtllib = None
+    usemtl = None
+    with open(path) as f:
+        for line in f:
+            t = line.split()
+            if not t:
+                continue
+            if t[0] == "mtllib" and mtllib is None:
+                mtllib = line.split(None, 1)[1].strip()
+            elif t[0] == "usemtl" and usemtl is None:
+                usemtl = t[1]
+    if mtllib is None or usemtl is None:
+        return [], [], -1
+    mtl_path = os.path.join(os.path.dirname(path), mtllib)
+    if not os.path.exists(mtl_path):
+        return [], [], -1
+    materials, textures = [], []
+    cur = None
+    sel = -1
+    with open(mtl_path) as f:
+        for line in f:
+            t = line.split()
+            if not t:
+                continue
+            if t[0] == "newmtl":
+                cur = ImportedMaterial(name=t[1])
+                materials.append(cur)
+                if t[1] == usemtl:
+                    sel = len(materials) - 1
+            elif cur is not None and t[0] == "Kd":
+                cur.base_color = np.asarray(
+                    [float(t[1]), float(t[2]), float(t[3]), 1.0],
+                    np.float32,
+                )
+            elif cur is not None and t[0] == "Ns":
+                # shininess -> rough approximation
+                cur.roughness = float(
+                    np.clip(1.0 - float(t[1]) / 1000.0, 0.0, 1.0)
+                )
+            elif cur is not None and t[0] == "map_Kd":
+                tex_file = os.path.join(
+                    os.path.dirname(mtl_path), line.split(None, 1)[1].strip()
+                )
+                if os.path.exists(tex_file):
+                    with open(tex_file, "rb") as tf:
+                        textures.append(
+                            _decode_image(tf.read(), os.path.basename(tex_file))
+                        )
+                    cur.texture = len(textures) - 1
+    return materials, textures, sel
+
+
+def import_assets(path: str) -> ImportedAssets:
+    """Full import: geometry + materials + decoded textures (reference
+    ``AssetImporter::importFromDisk`` -> ``ImportedAssets``)."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext in (".gltf", ".glb"):
+        meshes, doc, buffers = _load_gltf_raw(path)
+        materials, textures = _gltf_materials(
+            doc, buffers, os.path.dirname(path)
+        )
+        return ImportedAssets(meshes, materials, textures)
+    if ext == ".obj":
+        mesh = load_obj(path)
+        materials, textures, sel = _load_obj_mtl(path)
+        mesh.material = sel
+        return ImportedAssets([mesh], materials, textures)
+    return ImportedAssets(import_from_disk(path), [], [])

@@ -13,10 +13,11 @@ Threefry words: the port stores ``rng`` as int64 holding 32-bit values
 uint32 <-> int64 exactly. Every other array keeps its dtype.
 
 The render tables cross the same way: :func:`blas_from_numpy`,
-:func:`materials_from_numpy` and :func:`lights_from_numpy` take the
-fields of the JAX package's ``BlasTables``, ``MaterialTables`` and
-``Lights`` as a mapping of numpy arrays (by field name) and give the
-port's tables on a named device.
+:func:`blas4_from_numpy`, :func:`materials_from_numpy` and
+:func:`lights_from_numpy` take the fields of the JAX package's
+``BlasTables``, ``Blas4Tables``, ``MaterialTables`` and ``Lights`` as a
+mapping of numpy arrays (by field name) and give the port's tables on a
+named device.
 
 :class:`TrainInterface` is the learner's side: the named step inputs
 and outputs of a sim, stepped from torch tensors on the sim's own
@@ -101,11 +102,39 @@ def _table(cls, tree, device, ints=()):
 def blas_from_numpy(tree, device):
     """The port's ``render.blas.BlasTables`` from numpy fields (node_min,
     node_max, left, right, tri_v0, tri_e1, tri_e2, tri_color, tri_uv,
-    tri_mat, max_leaf, num_objects; the JAX package's ``wide`` must be
-    None: the 4-wide collapse is not ported)."""
+    tri_mat, max_leaf, num_objects, and ``wide``: None or the fields of
+    the 4-wide collapse, see :func:`blas4_from_numpy`)."""
     from .render.blas import BlasTables
 
-    return _table(BlasTables, tree, device, ints=("max_leaf", "num_objects"))
+    tree = dict(tree)
+    wide = tree.pop("wide", None)
+    blas = _table(BlasTables, tree, device,
+                  ints=("max_leaf", "num_objects"))
+    if isinstance(wide, dict):
+        blas.wide = blas4_from_numpy(wide, device)
+    return blas
+
+
+def blas4_from_numpy(tree, device):
+    """The port's ``render.blas.Blas4Tables`` from numpy fields (c_min,
+    c_max, c_entry, leaf_first, leaf_count, tri_v0, tri_e1, tri_e2,
+    max_leaf). bfloat16 boxes (``np.asarray`` of a JAX bfloat16 array has
+    ml_dtypes' bfloat16 dtype) are widened to float32 on the way and
+    narrowed back exactly."""
+    from .render.blas import Blas4Tables
+
+    tree = dict(tree)
+    bf16 = False
+    for k in ("c_min", "c_max"):
+        a = np.asarray(tree[k])
+        if a.dtype.name == "bfloat16":
+            bf16 = True
+            tree[k] = a.astype(np.float32)
+    out = _table(Blas4Tables, tree, device, ints=("max_leaf",))
+    if bf16:
+        out.c_min = out.c_min.to(torch.bfloat16)
+        out.c_max = out.c_max.to(torch.bfloat16)
+    return out
 
 
 def materials_from_numpy(tree, device):

@@ -395,12 +395,11 @@ def _avg_contacts_batch(points, num):
     over [W, C, 4, 4] (getAvgContact, xpbd.cpp:420-448)."""
     live = torch.arange(4, device=points.device) < num[..., None]
     wgt = torch.where(live, points[..., 3], 0.0)
-    total = wgt.sum(dim=-1)
+    total = m3.sum_in_order(wgt)
     zero = total == 0.0
-    avg = (
+    avg = m3.sum_in_order(
         (wgt / torch.where(zero, 1.0, total)[..., None])[..., None]
-        * points[..., :3]
-    ).sum(dim=-2)
+        * points[..., :3], dim=-2)
     max_pen = torch.where(live, points[..., 3], -3e38).amax(dim=-1)
     return avg, max_pen, zero
 
@@ -712,7 +711,7 @@ def solve_velocities(body: BodyState, contacts: Contacts, om, h: float,
     pts = contacts.points                                 # [W, C, 4, 4]
     depth = pts[..., 3]
     live4 = torch.arange(4, device=num.device) < num[..., None]
-    pen_sum = torch.where(live4, depth, 0.0).sum(dim=-1)
+    pen_sum = m3.sum_in_order(torch.where(live4, depth, 0.0))
     live_pt = ok[..., None] & live4 & (pen_sum > 0.0)[..., None]
     lam_pt = torch.abs(contacts.lambda_n[..., None] * (
         depth / torch.where(pen_sum > 0, pen_sum, 1.0)[..., None]))

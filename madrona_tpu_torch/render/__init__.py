@@ -1,10 +1,9 @@
 """Batch renderer: mesh tables, raycaster, render-ECS glue.
 
 Port of ``madrona_tpu/render``: the dense tier and the raycast kernel
-tier, the per-view cull (``tlas``), the mesh-BVH tier (``blas``), and
-the material and light tables. The JAX package's one-hot and 4-wide BVH
-walkers and ``bake_assets_blas`` (which needs the asset importers) are
-not ported.
+tier, the per-view cull (``tlas``), the mesh-BVH tier (``blas``: the
+gather, one-hot and 4-wide walkers, ``bake_assets_blas`` for imported
+assets), and the material and light tables.
 """
 
 from .mesh import MAX_TRIS, MeshRegistry, MeshTables

@@ -19,15 +19,24 @@ Python loop whose condition reads the stack pointers back to the host
 once an iteration. That host sync is allowed here because this is the
 plain tier, not a kernel's path.
 
-Walkers: ``cfg.blas_walker`` "auto" resolves to "gather" (as the JAX
-package does on the CPU). The JAX package's one-hot (TPU MXU) and 4-wide
-walkers are not ported: "onehot" and "wide", and the functions behind
-them, raise ``NotImplementedError``.
+Walkers (``cfg.blas_walker``), all with the same hits: "gather" walks
+the binary tree by gathers; "onehot" (:func:`trace_rays_blas_onehot`)
+is that walk too (the JAX package fetches the same rows by one-hot
+matmuls for the TPU; the card gathers them); "wide"
+(:func:`trace_rays_blas4`) walks the 4-wide collapse that
+:func:`with_wide` attaches, its boxes in float32 or rounded outward to
+bfloat16. "auto" takes the JAX package's CPU rule on every device:
+"wide" where ``blas.wide`` is set, else "gather" (the JAX package picks
+the one-hot walker off the CPU because of the TPU's gathers).
+
+:func:`bake_assets_blas` bakes imported assets
+(``assets.importer.ImportedAssets``) into the BLAS and material tables.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -36,10 +45,12 @@ import torch
 from ..core.device import resolve_device
 from ..utils import math3d as m3
 
-# rays of a view traced together in the plain tier: the whole view up to
-# this many, else sequential chunks of this many (they bound the
-# (instance, ray, stack) working set)
+# rays of a view traced together in the plain tier where
+# ``RenderConfig.ray_chunk`` is 0: the whole view up to this many, else
+# sequential chunks of this many (they bound the (instance, ray, stack)
+# working set)
 RAY_CHUNK = 1024
+WALKERS = ("auto", "gather", "onehot", "wide")
 
 
 @dataclasses.dataclass
@@ -63,17 +74,27 @@ class BlasTables:
     tri_mat: torch.Tensor    # [O, T] i32 material slot (0 = default)
     max_leaf: int = 4
     num_objects: int = 0
+    # the 4-wide collapse (Blas4Tables, attached by with_wide): the
+    # "auto" and "wide" walkers walk it; same hits
+    wide: object = None
 
     @property
     def num_nodes(self) -> int:
         return self.node_min.shape[1]
 
     def to(self, device) -> "BlasTables":
-        return dataclasses.replace(self, **{
-            f.name: getattr(self, f.name).to(device)
-            for f in dataclasses.fields(self)
-            if torch.is_tensor(getattr(self, f.name))
-        })
+        return _tables_to(self, device)
+
+
+def _tables_to(tables, device):
+    """A dataclass of tensors (and nested such tables) on ``device``."""
+    def move(x):
+        movable = torch.is_tensor(x) or dataclasses.is_dataclass(x)
+        return x.to(device) if movable else x
+
+    return dataclasses.replace(tables, **{
+        f.name: move(getattr(tables, f.name))
+        for f in dataclasses.fields(tables)})
 
 
 def bake_blas(bvhs: Sequence, colors=None, tri_colors=None, uvs=None,
@@ -133,32 +154,270 @@ def bake_blas(bvhs: Sequence, colors=None, tri_colors=None, uvs=None,
     )
 
 
-def _not_ported(what):
-    raise NotImplementedError(
-        f"{what} (the JAX package's TPU walkers) is not ported; the "
-        "binary gather walker (blas_walker='gather' or 'auto') is"
-    )
+def bake_assets_blas(assets, leaf_size: int = 4, tex_size: int = 64,
+                     device=None):
+    """(BlasTables, MaterialTables, object ids) of imported assets
+    (``assets.importer.ImportedAssets``) on ``device`` (default: the
+    card): one render object per imported mesh, built by the port's SAH
+    builder, with its UVs and its material in slot ``material + 1`` (0 is
+    the default white material); textures resampled to ``tex_size``
+    (the reference's ``AssetProcessor::makeBVHData`` and
+    ``initMaterialData``)."""
+    from ..assets.bvh import build_mesh_bvh
+    from .materials import bake_materials
+
+    bvhs = [build_mesh_bvh(m.positions, m.indices, leaf_size)
+            for m in assets.meshes]
+    blas = bake_blas(bvhs, uvs=[m.uvs for m in assets.meshes],
+                     materials=[m.material + 1 for m in assets.meshes],
+                     device=device)
+    mats = bake_materials(assets.materials, assets.textures,
+                          tex_size=tex_size, device=device)
+    return blas, mats, list(range(len(assets.meshes)))
+
+
+@dataclasses.dataclass
+class Blas4Tables:
+    """The 4-wide collapse of :class:`BlasTables` (the reference's wide
+    BVH nodes test several children together): half the tree's depth.
+
+    Child entries (``c_entry``): >= 0 the index of a child wide node,
+    < 0 the leaf slot ``-(entry) - 1`` into ``leaf_first`` /
+    ``leaf_count``. Empty child slots carry inverted +inf/-inf boxes.
+    ``c_min`` / ``c_max`` may be bfloat16, rounded outward at the bake
+    (min down, max up), so that the rounding can only add node visits,
+    never lose a hit; the triangles and their test stay float32."""
+
+    c_min: torch.Tensor       # [O, N4, 4, 3] f32 or bf16
+    c_max: torch.Tensor       # [O, N4, 4, 3]
+    c_entry: torch.Tensor     # [O, N4, 4] i32
+    leaf_first: torch.Tensor  # [O, L] i32
+    leaf_count: torch.Tensor  # [O, L] i32
+    tri_v0: torch.Tensor      # [O, T, 3] f32 (leaf order, shared)
+    tri_e1: torch.Tensor
+    tri_e2: torch.Tensor
+    max_leaf: int = 4
+
+    def to(self, device) -> "Blas4Tables":
+        return _tables_to(self, device)
+
+
+def _bf16_bits(x):
+    """bfloat16 bit patterns [0, 65535] (int64) of float32 ``x``, rounded
+    to nearest even by torch's cast."""
+    return x.to(torch.bfloat16).view(torch.int16).to(torch.int64) & 0xFFFF
+
+
+def _bf16_value(bits):
+    """float32 of bfloat16 bit patterns (int64)."""
+    w = bits << 16
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(
+        torch.int32).view(torch.float32)
 
 
 def _bf16_outward(lo, hi):
-    _not_ported("_bf16_outward")
+    """AABB bounds rounded outward to bfloat16 values (as float32): lo
+    down, hi up. torch's cast rounds to nearest even; where that moved a
+    bound inward it steps one bfloat16 ulp outward, by the sign bit (the
+    next value below -0.0 or 0.0 is -min_bf16, 0x8001; above -0.0,
+    +min_bf16, 0x0001). Infinities stay."""
+    lo = torch.as_tensor(lo, dtype=torch.float32)
+    hi = torch.as_tensor(hi, dtype=torch.float32)
+    b = _bf16_bits(lo)
+    neg = (b & 0x8000) != 0
+    down = torch.where(neg, b + 1, torch.where(b == 0, 0x8001, b - 1))
+    q = _bf16_value(b)
+    lo_q = torch.where(q <= lo, q, _bf16_value(down))
+    b = _bf16_bits(hi)
+    neg = (b & 0x8000) != 0
+    up = torch.where(neg, torch.where(b == 0x8000, 0x0001, b - 1), b + 1)
+    q = _bf16_value(b)
+    hi_q = torch.where(q >= hi, q, _bf16_value(up))
+    return lo_q, hi_q
 
 
-def widen_blas(blas, aabb_dtype="float32"):
-    _not_ported("widen_blas, the 4-wide BVH collapse,")
+def widen_blas(blas: BlasTables, aabb_dtype: str = "float32") -> Blas4Tables:
+    """Collapse each object's binary BVH into 4-wide nodes (on the host).
+
+    Each binary inner node's children become: the child itself if it is
+    a leaf, else its two children; up to 4 entries whose boxes are the
+    binary nodes' own. The triangle tables are ``blas``'s (same leaf
+    order), so the hits are the binary walker's."""
+    nm, nx, lf, rt = (np.asarray(getattr(blas, k).cpu()) for k in
+                      ("node_min", "node_max", "left", "right"))
+    o = nm.shape[0]
+    per_obj = []
+    for i in range(o):
+        leaves = []          # (first, count)
+        wide = []            # each: list of (min3, max3, entry)
+        wid_of = {}          # binary inner index -> wide index
+
+        def leaf_slot(b):
+            leaves.append((int(lf[i, b]), int(-rt[i, b])))
+            return -len(leaves)          # -(slot) - 1, slot = len - 1
+
+        def is_leaf(b):
+            return rt[i, b] <= 0
+
+        if is_leaf(0):
+            wide.append([(nm[i, 0], nx[i, 0], leaf_slot(0))])
+        else:
+            wid_of[0] = 0
+            wide.append(None)
+            work = [0]
+            while work:
+                b = work.pop()
+                kids = []
+                for c in (int(lf[i, b]), int(rt[i, b])):
+                    if is_leaf(c):
+                        kids.append((nm[i, c], nx[i, c], leaf_slot(c)))
+                        continue
+                    for g in (int(lf[i, c]), int(rt[i, c])):
+                        if is_leaf(g):
+                            kids.append((nm[i, g], nx[i, g], leaf_slot(g)))
+                            continue
+                        if g not in wid_of:
+                            wid_of[g] = len(wide)
+                            wide.append(None)
+                            work.append(g)
+                        kids.append((nm[i, g], nx[i, g], wid_of[g]))
+                wide[wid_of[b]] = kids
+        per_obj.append((wide, leaves))
+
+    n4 = max(len(w_) for w_, _ in per_obj)
+    n_l = max(max(len(lv), 1) for _, lv in per_obj)
+    cmin = np.full((o, n4, 4, 3), np.inf, np.float32)
+    cmax = np.full((o, n4, 4, 3), -np.inf, np.float32)
+    cent = np.zeros((o, n4, 4), np.int32)
+    lfir = np.zeros((o, n_l), np.int32)
+    lcnt = np.zeros((o, n_l), np.int32)
+    for i, (wide, leaves) in enumerate(per_obj):
+        for w_, kids in enumerate(wide):
+            for k, (mn, mx, e) in enumerate(kids):
+                cmin[i, w_, k] = mn
+                cmax[i, w_, k] = mx
+                cent[i, w_, k] = e
+        lfir[i, :len(leaves)] = [a for a, _ in leaves]
+        lcnt[i, :len(leaves)] = [c for _, c in leaves]
+    dev = blas.node_min.device
+    cmin_t, cmax_t = torch.from_numpy(cmin), torch.from_numpy(cmax)
+    if aabb_dtype == "bfloat16":
+        lo_q, hi_q = _bf16_outward(cmin_t, cmax_t)
+        cmin_t, cmax_t = lo_q.to(torch.bfloat16), hi_q.to(torch.bfloat16)
+    elif aabb_dtype != "float32":
+        raise ValueError(f"aabb_dtype {aabb_dtype!r}: float32 or bfloat16")
+    t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    return Blas4Tables(
+        c_min=cmin_t.to(dev), c_max=cmax_t.to(dev), c_entry=t(cent),
+        leaf_first=t(lfir), leaf_count=t(lcnt), tri_v0=blas.tri_v0,
+        tri_e1=blas.tri_e1, tri_e2=blas.tri_e2, max_leaf=blas.max_leaf)
 
 
-def with_wide(blas, aabb_dtype="float32"):
-    _not_ported("with_wide, the 4-wide BVH collapse,")
+def with_wide(blas: BlasTables, aabb_dtype: str = "float32") -> BlasTables:
+    """``blas`` with the 4-wide collapse attached (the "auto" and "wide"
+    walkers then walk it; the hits are the same)."""
+    return dataclasses.replace(blas, wide=widen_blas(blas, aabb_dtype))
 
 
-def trace_rays_blas4(blas4, obj, o_l, d_l, live, t_max, stack_size=48):
-    _not_ported("trace_rays_blas4, the 4-wide walker,")
+def _leaf_tris(fetch_tri, n_tris, max_leaf, first, count, o_l, d_l, best):
+    """Masked Möller-Trumbore over a leaf's fixed budget of ``max_leaf``
+    triangles from ``first`` (``count`` of them live a lane), into the
+    running nearest hit ``best`` = [t, tri, u, v] (updated in place)."""
+    for k in range(max_leaf):
+        ti = torch.clamp(first + k, 0, n_tris - 1)
+        valid = k < count
+        v0, e1, e2 = fetch_tri(ti)
+        p = m3.cross(d_l, e2)
+        det = m3.dot(e1, p)
+        inv_det = torch.where(torch.abs(det) > 1e-12, 1.0 / det, 0.0)
+        tv = o_l - v0
+        u = m3.dot(tv, p) * inv_det
+        q = m3.cross(tv, e1)
+        v = m3.dot(d_l, q) * inv_det
+        t = m3.dot(e2, q) * inv_det
+        hit = (
+            valid & (torch.abs(det) > 1e-12)
+            & (u >= 0) & (v >= 0) & (u + v <= 1)
+            & (t > 1e-3) & (t < best[0])
+        )
+        best[1] = torch.where(hit, ti.to(torch.int32), best[1])
+        best[2] = torch.where(hit, u, best[2])
+        best[3] = torch.where(hit, v, best[3])
+        best[0] = torch.where(hit, t, best[0])
 
 
-def trace_rays_blas_onehot(blas, obj, o_l, d_l, live, t_max,
-                           stack_size=48):
-    _not_ported("trace_rays_blas_onehot, the one-hot walker,")
+def trace_rays_blas4(blas4: Blas4Tables, obj, o_l, d_l, live, t_max: float,
+                     stack_size: int = 48):
+    """The 4-wide walker; the contract of :func:`trace_rays_blas`.
+
+    Stack entries: >= 1 a wide node's index + 1; <= -1 the leaf slot
+    ``-e - 1`` (0 stays free as the empty filler). An inner node's hit
+    children are sorted by their entry distance with a 5-comparator
+    network and pushed farthest first, so the nearest pops first."""
+    b = obj.shape[0]
+    dev = o_l.device
+    obj = obj.long()
+    n_wide, n_leaf = blas4.c_entry.shape[1], blas4.leaf_first.shape[1]
+    n_tris = blas4.tri_v0.shape[1]
+    inv_d = torch.where(torch.abs(d_l) > 1e-12, 1.0 / d_l, 1e30)
+    stack = torch.zeros((b, stack_size), dtype=torch.int32, device=dev)
+    stack[:, 0] = live.to(torch.int32)             # the root, entry +1
+    sp = live.to(torch.int64)
+    best = [torch.full((b,), t_max, dtype=torch.float32, device=dev),
+            torch.full((b,), -1, dtype=torch.int32, device=dev),
+            torch.zeros((b,), dtype=torch.float32, device=dev),
+            torch.zeros((b,), dtype=torch.float32, device=dev)]
+    lanes = torch.arange(b, device=dev)
+
+    def fetch_tri(ti):
+        return (blas4.tri_v0[obj, ti], blas4.tri_e1[obj, ti],
+                blas4.tri_e2[obj, ti])
+
+    while bool((sp > 0).any()):
+        active = sp > 0
+        e = stack[lanes, torch.clamp(sp - 1, min=0)].long()
+        sp = sp - active.long()
+        is_leaf = e < 0
+
+        # leaf lanes: the leaf's triangles
+        slot = torch.clamp(torch.where(is_leaf, -e - 1, 0), max=n_leaf - 1)
+        first = blas4.leaf_first[obj, slot].long()
+        count = torch.where(is_leaf & active, blas4.leaf_count[obj, slot], 0)
+        _leaf_tris(fetch_tri, n_tris, blas4.max_leaf, first, count, o_l, d_l,
+                   best)
+
+        # inner lanes: test the 4 children, push the hit ones far to near
+        node = torch.clamp(torch.where(is_leaf | ~active, 0, e - 1), 0,
+                           n_wide - 1)
+        cmin = blas4.c_min[obj, node].float()               # [B, 4, 3]
+        cmax = blas4.c_max[obj, node].float()
+        t0 = (cmin - o_l[:, None, :]) * inv_d[:, None, :]
+        t1 = (cmax - o_l[:, None, :]) * inv_d[:, None, :]
+        lo = torch.minimum(t0, t1).amax(dim=-1)            # [B, 4]
+        hi = torch.maximum(t0, t1).amin(dim=-1)
+        enter = torch.clamp(lo, min=0.0)
+        # empty slots carry inverted boxes, which a negative inv_d turns
+        # into (-inf, inf): mask them explicitly
+        cvalid = (cmax >= cmin).all(dim=-1)
+        chit = cvalid & (hi >= enter) & (enter <= best[0][:, None])
+        chit = chit & (~is_leaf & active)[:, None]
+        ent = blas4.c_entry[obj, node]                      # [B, 4]
+        enc = torch.where(ent >= 0, ent + 1, ent)
+        dist = torch.where(chit, enter, float("inf"))
+        d_ = list(dist.unbind(1))
+        en_ = list(enc.unbind(1))
+        h_ = list(chit.unbind(1))
+        for i, j in ((0, 1), (2, 3), (0, 2), (1, 3), (1, 2)):
+            swap = d_[i] > d_[j]
+            for a in (d_, en_, h_):
+                a[i], a[j] = (torch.where(swap, a[j], a[i]),
+                              torch.where(swap, a[i], a[j]))
+        for k in (3, 2, 1, 0):                 # the farthest pushed first
+            do = h_[k] & (sp < stack_size)
+            pos = torch.clamp(sp, max=stack_size - 1)
+            stack[lanes, pos] = torch.where(do, en_[k], stack[lanes, pos])
+            sp = sp + do.long()
+    return tuple(best)
 
 
 def _slab(nmin, nmax, o, inv_d, t_best):
@@ -173,7 +432,8 @@ def _slab(nmin, nmax, o, inv_d, t_best):
 
 def trace_rays_blas(blas: BlasTables, obj, o_l, d_l, live, t_max: float,
                     stack_size: int = 48):
-    """Ordered depth-first BVH walk over all lanes.
+    """Ordered depth-first BVH walk over all lanes, the near child popped
+    first.
 
     obj [B] int object per lane; o_l / d_l [B, 3] the ray in the
     object's frame (d need not be unit); live [B] bool. Returns (t [B],
@@ -186,22 +446,26 @@ def trace_rays_blas(blas: BlasTables, obj, o_l, d_l, live, t_max: float,
     inv_d = torch.where(torch.abs(d_l) > 1e-12, 1.0 / d_l, 1e30)
     stack = torch.zeros((b, stack_size), dtype=torch.int32, device=dev)
     sp = live.to(torch.int64)                       # root pushed if live
-    best_t = torch.full((b,), t_max, dtype=torch.float32, device=dev)
-    best_tri = torch.full((b,), -1, dtype=torch.int32, device=dev)
-    best_u = torch.zeros((b,), dtype=torch.float32, device=dev)
-    best_v = torch.zeros_like(best_u)
+    best = [torch.full((b,), t_max, dtype=torch.float32, device=dev),
+            torch.full((b,), -1, dtype=torch.int32, device=dev),
+            torch.zeros((b,), dtype=torch.float32, device=dev),
+            torch.zeros((b,), dtype=torch.float32, device=dev)]
     lanes = torch.arange(b, device=dev)
 
     def node_box(node):
         n = torch.clamp(node, 0, n_nodes - 1)       # masked lanes only
         return blas.node_min[obj, n], blas.node_max[obj, n]
 
+    def fetch_tri(ti):
+        return (blas.tri_v0[obj, ti], blas.tri_e1[obj, ti],
+                blas.tri_e2[obj, ti])
+
     while bool((sp > 0).any()):
         active = sp > 0
         node = stack[lanes, torch.clamp(sp - 1, min=0)].long()
         sp = sp - active.long()
 
-        _, node_hit = _slab(*node_box(node), o_l, inv_d, best_t)
+        _, node_hit = _slab(*node_box(node), o_l, inv_d, best[0])
         node_hit = node_hit & active
         lc = blas.left[obj, node].long()
         rc = blas.right[obj, node].long()
@@ -209,34 +473,13 @@ def trace_rays_blas(blas: BlasTables, obj, o_l, d_l, live, t_max: float,
 
         # leaf: masked Möller-Trumbore over the fixed leaf budget
         count = torch.where(is_leaf & node_hit, -rc, 0)
-        for k in range(blas.max_leaf):
-            ti = torch.clamp(lc + k, 0, n_tris - 1)
-            valid = k < count
-            v0 = blas.tri_v0[obj, ti]
-            e1 = blas.tri_e1[obj, ti]
-            e2 = blas.tri_e2[obj, ti]
-            p = m3.cross(d_l, e2)
-            det = m3.dot(e1, p)
-            inv_det = torch.where(torch.abs(det) > 1e-12, 1.0 / det, 0.0)
-            tv = o_l - v0
-            u = m3.dot(tv, p) * inv_det
-            q = m3.cross(tv, e1)
-            v = m3.dot(d_l, q) * inv_det
-            t = m3.dot(e2, q) * inv_det
-            hit = (
-                valid & (torch.abs(det) > 1e-12)
-                & (u >= 0) & (v >= 0) & (u + v <= 1)
-                & (t > 1e-3) & (t < best_t)
-            )
-            best_tri = torch.where(hit, ti.to(torch.int32), best_tri)
-            best_u = torch.where(hit, u, best_u)
-            best_v = torch.where(hit, v, best_v)
-            best_t = torch.where(hit, t, best_t)
+        _leaf_tris(fetch_tri, n_tris, blas.max_leaf, lc, count, o_l, d_l,
+                   best)
 
         # inner: push the children ordered (the near child pops first)
         push = node_hit & ~is_leaf
-        lt, lhit = _slab(*node_box(lc), o_l, inv_d, best_t)
-        rt, rhit = _slab(*node_box(rc), o_l, inv_d, best_t)
+        lt, lhit = _slab(*node_box(lc), o_l, inv_d, best[0])
+        rt, rhit = _slab(*node_box(rc), o_l, inv_d, best[0])
         lhit = lhit & push
         rhit = rhit & push
         l_near = lt <= rt
@@ -250,7 +493,14 @@ def trace_rays_blas(blas: BlasTables, obj, o_l, d_l, live, t_max: float,
             pos = torch.clamp(sp, max=stack_size - 1)
             stack[lanes, pos] = torch.where(do, val, stack[lanes, pos])
             sp = sp + do.long()
-    return best_t, best_tri, best_u, best_v
+    return tuple(best)
+
+
+# The JAX package's one-hot walker walks the same tree in the same order
+# as its gather walker, fetching rows by one-hot matmuls because the TPU
+# lacks fast gathers. The card gathers, so the port's one-hot walker is
+# the gather walk: same contract, same hits.
+trace_rays_blas_onehot = trace_rays_blas
 
 
 def _take(a, idx):
@@ -266,10 +516,11 @@ def _trace_nearest(cfg, blas, inst_pos, inst_rot, inst_scale, inst_obj,
     [..., R, 3]. Returns (depth [..., R], win [..., R] winning instance,
     tri [..., R] leaf slot or -1, u, v)."""
     walker = getattr(cfg, "blas_walker", "auto")
-    if walker in ("onehot", "wide"):
-        _not_ported(f"blas_walker={walker!r}")
-    if walker not in ("auto", "gather"):
+    if walker not in WALKERS:
         raise ValueError(f"unknown blas_walker {walker!r}")
+    if walker == "auto":
+        # the JAX package's CPU rule on every device (see the module doc)
+        walker = "wide" if blas.wide is not None else "gather"
     inv_q = m3.quat_inv(inst_rot)[..., :, None, :]
     scale = torch.clamp(inst_scale, min=1e-12)[..., :, None, :]
     # the affine map keeps the ray's parameter: local t is world t
@@ -279,8 +530,14 @@ def _trace_nearest(cfg, blas, inst_pos, inst_rot, inst_scale, inst_obj,
     shape = o_l.shape[:-1]                                  # [..., I, R]
     obj = inst_obj[..., :, None].expand(shape).reshape(-1)
     live = inst_mask[..., :, None].expand(shape).reshape(-1)
-    t, tri, u, v = trace_rays_blas(blas, obj, o_l.reshape(-1, 3),
-                                   d_l.reshape(-1, 3), live, t_max)
+    if walker == "wide" and blas.wide is not None:
+        trace = functools.partial(trace_rays_blas4, blas.wide)
+    elif walker == "onehot":
+        trace = functools.partial(trace_rays_blas_onehot, blas)
+    else:
+        trace = functools.partial(trace_rays_blas, blas)
+    t, tri, u, v = trace(obj, o_l.reshape(-1, 3), d_l.reshape(-1, 3), live,
+                         t_max)
     t, tri, u, v = (x.reshape(shape) for x in (t, tri, u, v))
     win = torch.argmin(t, dim=-2)                           # [..., R]
     depth = t.amin(dim=-2)
@@ -407,10 +664,10 @@ def _render_chunk(cfg, blas, k, ip, ir, isc, io, ims, lt, cps, crs,
     rays_o = o.reshape(c, n_views, h * w, 3)
     rays_d = d.reshape(c, n_views, h * w, 3)
     n_rays = h * w
-    rc = n_rays if n_rays <= RAY_CHUNK else RAY_CHUNK
-    if n_rays % rc:
-        raise ValueError(f"{RAY_CHUNK}-ray chunks must divide the "
-                         f"{n_rays} rays of a view")
+    rc = cfg.ray_chunk or (n_rays if n_rays <= RAY_CHUNK else RAY_CHUNK)
+    if rc < n_rays and n_rays % rc:
+        raise ValueError(f"ray_chunk {rc} must divide the {n_rays} rays "
+                         "of a view")
     # sequential ray chunks bound the (instance, ray, stack) working set;
     # exact, rays are independent
     outs = [

@@ -16,8 +16,10 @@ singletons. Its tiers, as in the JAX package:
   where ``tlas_max_instances`` > 0.
 
 The tables may lie on any device; the node moves them to the state's
-device once and keeps them there. The JAX package's
-``MADRONA_TPU_BLAS_WIDE`` knob (its 4-wide walker) is not ported.
+device once and keeps them there. ``MADRONA_TPU_BLAS_WIDE=1`` (or
+``bf16``) attaches the 4-wide collapse (``render/blas.py::with_wide``,
+float32 or bfloat16 boxes) to any BLAS tier, as in the JAX package; the
+hits are the same.
 
 Usage: ``RenderingSystem.register_types`` and ``setup_tasks`` on a
 builder (Hide & Seek gives the renderer a graph of its own).
@@ -26,6 +28,7 @@ builder (Hide & Seek gives the renderer a graph of its own).
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Sequence
 
 import torch
@@ -62,6 +65,13 @@ class RenderingSystem:
         lights_fn=None,               # or fn(state) -> Lights (dynamic)
     ):
         self.mesh = mesh
+        wide_env = os.environ.get("MADRONA_TPU_BLAS_WIDE", "")
+        if blas is not None and wide_env and blas.wide is None:
+            from .blas import with_wide
+
+            blas = with_wide(blas, aabb_dtype=(
+                "bfloat16" if wide_env in ("bf16", "bfloat16")
+                else "float32"))
         self.blas = blas
         self.materials = materials
         self.lights = lights

@@ -8,9 +8,10 @@ and texture sampling). The raycast kernel (``ops/raycast_cuda``) reads
 the atlas packed by ``render/kernel.py``; :func:`sample_materials` is
 the mesh-BVH tier's plain sampler.
 
-A texture must already be ``tex_size`` x ``tex_size``: the JAX package
-resizes others with PIL, which the port does not use, so the bake raises
-``ValueError`` for them.
+A texture of another size is resampled to ``tex_size`` x ``tex_size``
+by :func:`resize_bilinear`, which gives the bytes of the JAX package's
+PIL resize (``Image.resize(..., Image.BILINEAR)``) in numpy: the
+machines with the card have no PIL.
 """
 
 from __future__ import annotations
@@ -45,6 +46,85 @@ class MaterialTables:
             for f in dataclasses.fields(self)})
 
 
+# PIL's fixed-point resampling: 8-bit samples times coefficients of
+# 22 fractional bits (Pillow's Resample.c, PRECISION_BITS)
+PRECISION_BITS = 22
+
+
+def _bilinear_coeffs(in_size: int, out_size: int):
+    """(first source index [O], integer weights [O, K]) of PIL's
+    BILINEAR filter from ``in_size`` samples to ``out_size``: a triangle
+    whose support widens with the scale on a downsample, its weights
+    normalised in double and rounded to PRECISION_BITS bits."""
+    scale = in_size / out_size
+    fscale = max(scale, 1.0)
+    support = fscale                      # the triangle's support is 1
+    ksize = int(np.ceil(support)) * 2 + 1
+    ss = 1.0 / fscale
+    first = np.zeros(out_size, np.int64)
+    weights = np.zeros((out_size, ksize), np.int64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        lo = max(int(center - support + 0.5), 0)
+        n = min(int(center + support + 0.5), in_size) - lo
+        w = [max(0.0, 1.0 - abs((x + lo - center + 0.5) * ss))
+             for x in range(n)]
+        total = 0.0
+        for v in w:
+            total += v
+        if total != 0.0:
+            w = [v / total for v in w]
+        first[xx] = lo
+        weights[xx, :n] = [int(0.5 + v * (1 << PRECISION_BITS)) for v in w]
+    return first, weights
+
+
+def _resample(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One separable pass of PIL's 8-bit resampling along ``axis`` of an
+    int64 image, rounded and clipped to [0, 255] as PIL does."""
+    x = np.moveaxis(img, axis, 0)
+    first, weights = _bilinear_coeffs(x.shape[0], out_size)
+    idx = np.minimum(first[:, None] + np.arange(weights.shape[1]),
+                     x.shape[0] - 1)
+    acc = np.full((out_size,) + x.shape[1:], 1 << (PRECISION_BITS - 1),
+                  np.int64)
+    for k in range(weights.shape[1]):
+        wk = weights[:, k].reshape((-1,) + (1,) * (x.ndim - 1))
+        acc += x[idx[:, k]] * wk
+    out = np.clip(acc >> PRECISION_BITS, 0, 255)
+    return np.moveaxis(out, 0, axis)
+
+
+def resize_bilinear(img, size) -> np.ndarray:
+    """``img`` [H, W, 3 or 4] uint8 resampled to ``size`` = (width,
+    height): the bytes of ``PIL.Image.fromarray(img).resize(size,
+    Image.BILINEAR)``. RGBA is premultiplied by alpha before the two
+    passes (horizontal, then vertical) and divided back after, as PIL
+    does (RGBA -> RGBa -> RGBA), so the colour of a texel with alpha
+    below 255 moves."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] not in (3, 4):
+        raise ValueError(f"resize_bilinear takes [H, W, 3|4] uint8, got "
+                         f"{img.shape} {img.dtype}")
+    w, h = size
+    x = img.astype(np.int64)
+    rgba = img.shape[2] == 4
+    if rgba:
+        a = x[..., 3:]
+        t = x[..., :3] * a + 128           # PIL's MULDIV255
+        x = np.concatenate([((t >> 8) + t) >> 8, a], axis=-1)
+    if w != img.shape[1]:
+        x = _resample(x, w, 1)
+    if h != img.shape[0]:
+        x = _resample(x, h, 0)
+    if rgba:
+        a = x[..., 3:]
+        back = np.minimum(255 * x[..., :3] // np.maximum(a, 1), 255)
+        x = np.concatenate(
+            [np.where((a == 0) | (a == 255), x[..., :3], back), a], axis=-1)
+    return x.astype(np.uint8)
+
+
 def bake_materials(materials: Sequence, textures: Sequence = (),
                    tex_size: int = 64, device=None) -> MaterialTables:
     """Pack ImportedMaterial / ImportedTexture lists into tables on
@@ -67,11 +147,7 @@ def bake_materials(materials: Sequence, textures: Sequence = (),
     for i, tex in enumerate(textures):
         img = np.asarray(tex.data)
         if img.shape[0] != tex_size or img.shape[1] != tex_size:
-            raise ValueError(
-                f"texture {tex.name!r} is {img.shape[1]}x{img.shape[0]}, "
-                f"the atlas takes {tex_size}x{tex_size}; the port does not "
-                "resize textures"
-            )
+            img = resize_bilinear(img, (tex_size, tex_size))
         atlas[i] = img[..., :3].astype(np.float32) / 255.0
     t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
     return MaterialTables(base_color=t(base), rough_metal=t(rm),

@@ -50,9 +50,14 @@ class RenderConfig:
     # shadow rays: one occlusion test toward the light per primary hit
     shadows: bool = False
     shadow_ambient: float = 0.25   # light scale inside shadow
-    # the mesh-BVH tier's walker: "auto" resolves to "gather", the binary
-    # walk ("onehot" and "wide", the JAX package's TPU walkers, raise)
+    # the mesh-BVH tier's walker: "gather", "onehot" or "wide" (the
+    # 4-wide collapse where with_wide attached it); "auto" takes "wide"
+    # where it is attached, else "gather". Same hits (render/blas.py)
     blas_walker: str = "auto"
+    # the mesh-BVH tier's rays a sequential chunk within a view (bounds
+    # the (instance, ray, stack) working set): 0 = the whole view up to
+    # 1024 rays, else 1024-ray chunks; must divide height * width
+    ray_chunk: int = 0
 
 
 TRACERS = ("mt", "matmul")

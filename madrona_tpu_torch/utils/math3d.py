@@ -98,8 +98,20 @@ def quat_rotate_inv(q, v):
     return quat_rotate(quat_inv(q), v)
 
 
+def sum_in_order(x, dim=-1):
+    """``x`` summed over ``dim`` left to right, the order of the CPU's
+    reduction. The card's reduction adds the terms in another order,
+    which can round one ulp apart and tip a contact one way on the card
+    and the other on the CPU."""
+    parts = x.unbind(dim)
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
+
+
 def quat_normalize(q):
-    l2 = (q * q).sum(dim=-1, keepdim=True)
+    l2 = sum_in_order(q * q)[..., None]
     return q / torch.sqrt(torch.clamp(l2, min=1e-30))
 
 

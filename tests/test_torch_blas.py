@@ -15,8 +15,10 @@ Tolerances:
   render_views_blas with max_instances_per_view > 0 and the raycast
     kernel tier off on both sides (the culled plain tier): rgb within
     1e-5, depth within 1e-4, overlap equal.
-The JAX package's one-hot and 4-wide walkers are not ported; they
-raise."""
+The walkers' names: an unknown one raises, "onehot" and "wide" (without
+a 4-wide collapse attached, the gather walk, as in the JAX package) give
+the gather walker's pixels exactly; the walkers themselves are held
+against the JAX package's in tests/test_torch_blas_walkers.py."""
 
 import dataclasses
 
@@ -236,12 +238,18 @@ def test_render_views_blas_culled_matches_jax(scene, monkeypatch):
 
 
 def test_unported_walkers_raise(scene):
+    """The walkers are all ported now: an unknown walker name raises
+    ValueError, and "onehot" and "wide" give the gather walker's planes
+    bit for bit."""
     blas = blas_from_numpy(jax_tree(scene[0]), "cpu")
     _, _, _, inst, rays = scene
+    args = _t(*inst, *rays)
+    cfg = t_ray.RenderConfig(width=16, height=16, blas_walker="no_such")
+    with pytest.raises(ValueError, match="blas_walker"):
+        t_blas.trace_scene_blas(cfg, blas, *args)
+    ref = t_blas.trace_scene_blas(
+        dataclasses.replace(cfg, blas_walker="gather"), blas, *args)
     for walker in ("onehot", "wide"):
-        cfg = t_ray.RenderConfig(width=16, height=16, blas_walker=walker)
-        with pytest.raises(NotImplementedError):
-            t_blas.trace_scene_blas(cfg, blas, *_t(*inst, *rays))
-    for fn in (t_blas.widen_blas, t_blas.with_wide):
-        with pytest.raises(NotImplementedError):
-            fn(blas)
+        got = t_blas.trace_scene_blas(
+            dataclasses.replace(cfg, blas_walker=walker), blas, *args)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref)), walker

@@ -16,14 +16,21 @@ solver="gauss_seidel"; its states are carried into the port.
   * tests/test_physics.py's fixed-joint and hinge scenes on the port,
     with the JAX test's bounds;
   * the ValueError of each tier that refuses a non-Jacobi solver, as the
-    JAX package raises it."""
+    JAX package raises it;
+  * the step with every short float sum taken in the order an H100's
+    reduction took it: equal bit for bit to the step as it runs, at
+    every third carried state and at the state an H100 reached after 16
+    steps (tests/goldens/torch_gs_card_state16.npz), where one step is
+    also held to the JAX oracle's within the golden bounds."""
 
 import dataclasses
+import os
 
 import jax
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from madrona_tpu.physics import api as japi
 from madrona_tpu.physics import broadphase as jbp
@@ -145,6 +152,104 @@ def test_node_matches_jax_each_step(jax_run):
             worst[k] = max(worst[k], _diff(g, r))
     for k, tol in GOLDEN.items():
         assert worst[k] <= tol, (k, worst)
+
+
+class _PairedSums(TorchDispatchMode):
+    """Float sums over one axis of 3 to 8 terms taken as the card's
+    reduction took four terms on an H100: the even terms and the odd
+    terms summed apart, then added ((t0 + t2) + (t1 + t3))."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func is torch.ops.aten.sum.dim_IntList:
+            x, dims = args[0], args[1]
+            keep = args[2] if len(args) > 2 else kwargs.get("keepdim", False)
+            if (x.dtype == torch.float32 and dims is not None
+                    and len(dims) == 1 and 2 < x.shape[dims[0]] <= 8
+                    and kwargs.get("dtype") is None):
+                parts = x.unbind(dims[0])
+                even, odd = parts[0], parts[1]
+                for p in parts[2::2]:
+                    even = even + p
+                for p in parts[3::2]:
+                    odd = odd + p
+                out = even + odd
+                return out.unsqueeze(dims[0]) if keep else out
+        return func(*args, **kwargs)
+
+
+def test_step_does_not_depend_on_the_sum_order(jax_run):
+    """The squares of a quaternion that an H100 summed to 1.0000004768
+    where the CPU gets 1.0000003576 (the card pairs the terms): in
+    chip_smoke.py's phase 29 that one ulp of a norm in the position solve
+    put a body's velocity 0.084 off the CPU's after step 16
+    (scripts/torch_gauss_seidel_ops.py finds such an op). The step sums
+    its short axes in a fixed order, so with every such float sum taken
+    in the card's pairing it is the same bit for bit, at every third of
+    the 30 carried states."""
+    sq = torch.tensor([0.49992892146110535, 3.717255125934571e-08,
+                       2.874797644381033e-08, 0.5000714063644409])
+    with _PairedSums():
+        paired = float(sq.sum(dim=-1))
+    assert (paired, float(sq.sum(dim=-1))) == (1.0000004768371582,
+                                               1.0000003576278687)
+    _, _, _, states = jax_run
+    t_ex, _, _ = stack_scene(True, PhysicsConfig(solver="gauss_seidel",
+                                                 dt=DT), W)
+    step = t_ex.step_fn()
+    for t in range(0, STEPS, 3):
+        want = step(carry_state(states[t]), {})[0]
+        with _PairedSums():
+            got = step(carry_state(states[t]), {})[0]
+        gc = got.tables[tapi.RIGID_BODY].columns
+        wc = want.tables[tapi.RIGID_BODY].columns
+        for k in ("Position", "Rotation"):
+            assert torch.equal(gc[k], wc[k]), (t, k)
+        for k in ("linear", "angular"):
+            assert torch.equal(gc["Velocity"][k], wc["Velocity"][k]), (t, k)
+
+
+CARD_STATE = os.path.join(os.path.dirname(__file__), "goldens",
+                          "torch_gs_card_state16.npz")
+
+
+def test_card_state_after_16_steps():
+    """The state of worlds 0-7 of chip_smoke.py phase 29's stack after 16
+    steps on an H100 (before the ordered sums; saved by
+    scripts/torch_gauss_seidel_ops.py --save), where the card's step put
+    world 4's body 1 0.084 off the CPU's: one step of the port on the
+    CPU within the golden bounds of the JAX oracle's from the same state
+    (world 4 body 1 within 0.02 in velocity; the state is near a contact
+    switch for the JAX package too), and bit for bit the same with every
+    short float sum in the card's pairing."""
+    from madrona_tpu.utils import checkpoint as j_ckpt
+    from madrona_tpu_torch.utils import checkpoint as t_ckpt
+
+    j_ex, _, _ = stack_scene(False, JConfig(solver="gauss_seidel", dt=DT),
+                             8)
+    j_next = jax.jit(j_ex.step_fn())(j_ckpt.load_npz(CARD_STATE,
+                                                      j_ex.state), {})[0]
+    t_ex, _, _ = stack_scene(True, PhysicsConfig(solver="gauss_seidel",
+                                                 dt=DT), 8)
+    step = t_ex.step_fn()
+    want = step(t_ckpt.load_npz(CARD_STATE, t_ex.state), {})[0]
+    with _PairedSums():
+        got = step(t_ckpt.load_npz(CARD_STATE, t_ex.state), {})[0]
+    wc = want.tables[tapi.RIGID_BODY].columns
+    gc = got.tables[tapi.RIGID_BODY].columns
+    rc = jax_tree(j_next.tables[japi.RIGID_BODY].columns)
+    for k, g, t, r in (
+        ("Position", gc["Position"], wc["Position"], rc["Position"]),
+        ("Rotation", gc["Rotation"], wc["Rotation"], rc["Rotation"]),
+        ("linear", gc["Velocity"]["linear"], wc["Velocity"]["linear"],
+         rc["Velocity"]["linear"]),
+        ("angular", gc["Velocity"]["angular"], wc["Velocity"]["angular"],
+         rc["Velocity"]["angular"]),
+    ):
+        assert torch.equal(g, t), k
+        assert _diff(t, r) <= GOLDEN[k], k
+    assert _diff(wc["Velocity"]["linear"][4, 1],
+                 rc["Velocity"]["linear"][4, 1]) <= 0.02
 
 
 def _om():

@@ -2,7 +2,7 @@
 
 Determinism across fresh sims bit for bit, pixels included; the two
 launches (("step", "render") advances the step counter by two, ("step",)
-skips the render); the device default and the tiers that are not ported;
+skips the render); the device default for every render tier;
 and the behaviours of tests/test_hide_seek.py at 2 worlds: visibility and
 occlusion (a ramp occludes too), seekers frozen in the prep phase, a
 locked box stays put, team-owned locks, a ramp is climbable; and a grab
@@ -65,7 +65,8 @@ def test_state_only_launch_skips_the_render_graph():
 def test_make_sim_defaults_to_cuda_and_unported_tiers_raise():
     """make_sim without a device means the card, for every render tier
     (the BLAS tier and the cull tier build since they were ported); the
-    JAX package's 4-wide BVH collapse, still unported, raises."""
+    4-wide BVH collapse attaches to the BLAS tier's tables (ported too);
+    an unknown render tier raises."""
     for env in (HideSeek, lambda: HideSeek(render_tier="blas"),
                 lambda: HideSeek(tlas_max_instances=8)):
         if torch.cuda.is_available():
@@ -75,8 +76,8 @@ def test_make_sim_defaults_to_cuda_and_unported_tiers_raise():
                 make_sim(env(), num_worlds=2)
     from madrona_tpu_torch.render import blas as t_blas
 
-    with pytest.raises(NotImplementedError):
-        t_blas.with_wide(HideSeek(render_tier="blas").rsys.blas)
+    blas = HideSeek(render_tier="blas").rsys.blas
+    assert blas.wide is None and t_blas.with_wide(blas).wide is not None
     with pytest.raises(ValueError):
         HideSeek(render_tier="nope")
 

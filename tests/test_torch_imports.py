@@ -53,6 +53,8 @@ def test_package_import_leaves_jax_out():
         "madrona_tpu_torch.render.blas, madrona_tpu_torch.render.tlas, "
         "madrona_tpu_torch.render.materials, "
         "madrona_tpu_torch.render.lights, madrona_tpu_torch.assets, "
+        "madrona_tpu_torch.assets.png, madrona_tpu_torch.assets.usd, "
+        "madrona_tpu_torch.utils.checkpoint, "
         "madrona_tpu_torch.utils.morton, "
         "madrona_tpu_torch.models.hide_seek, "
         "madrona_tpu_torch.models.pile, madrona_tpu_torch.models.cartpole, "

@@ -8,8 +8,9 @@ lights_from_numpy); integers and floats must be equal, bit for bit:
     native/bvh_build.cpp) of tests/test_blas.py's sphere and bumpy
     terrain: node_min, node_max, left, right, tri_order;
   bake_blas, through MeshRegistry.build_blas of Hide & Seek's meshes;
-  bake_materials (Hide & Seek's _make_materials) and sample_materials
-    (bilinear, wrapped) on random ids and uvs: the sample within 1e-6;
+  bake_materials (Hide & Seek's _make_materials; a texture of another
+    size resampled to the atlas's) and sample_materials (bilinear,
+    wrapped) on random ids and uvs: the sample within 1e-6;
   make_lights (directional and spot specs).
 The tables default to the card: without CUDA, building one without a
 device raises."""
@@ -137,10 +138,18 @@ def test_materials_equal_and_sampled_alike():
 
 
 def test_bake_materials_takes_no_other_size():
-    img = np.zeros((16, 8, 4), np.uint8)
-    with pytest.raises(ValueError, match="16"):
-        t_mat.bake_materials([], [ImportedTexture("t", img)], tex_size=8,
-                             device="cpu")
+    """A texture of another size is resampled to the atlas's (PIL's
+    bilinear resize in the JAX package): the atlases equal bit for
+    bit."""
+    from madrona_tpu.assets.importer import ImportedTexture as JTex
+
+    img = np.random.RandomState(5).randint(0, 256, (16, 8, 4)).astype(
+        np.uint8)
+    got = t_mat.bake_materials([], [ImportedTexture("t", img)], tex_size=8,
+                               device="cpu")
+    ref = j_mat.bake_materials([], [JTex("t", img)], tex_size=8)
+    assert got.atlas.shape == (1, 8, 8, 3)
+    np.testing.assert_array_equal(got.atlas.numpy(), np.asarray(ref.atlas))
 
 
 def test_make_lights_equal():
