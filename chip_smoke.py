@@ -109,9 +109,11 @@ Phases, each printing its own lines:
      scene in both SAT tiers. After the build, each
      kernel's registers, stack frame and local memory (cuobjdump); the
      JSON line carries the registers and stack of the kernel each
-     wrapper launches. The lidar's bound is what the function needs (the
-     row's bound_ms); beside it the same-work yardstick of the source
-     csrc/lidar.cu replaced (LIDAR_OPS_PER_RAY_BOX every (ray, box); the
+     wrapper launches. Every bound, its byte and operation counts and
+     the card's peaks come from madrona_tpu_torch/utils/roofline.py. The
+     lidar's bound is what the function needs (the row's bound_ms);
+     beside it the same-work yardstick of the source csrc/lidar.cu
+     replaced (lidar_same_work_cost, 120 operations every (ray, box); the
      row's same_work_bound_ms; that source is timed by
      scripts/torch_lidar_compare.py). The raycast kernel has a second
      row, "raycast_blas": phase 13a's BLAS-tier planes, its launches from
@@ -249,6 +251,42 @@ Phases, each printing its own lines:
      The JSON line's rows carry "launches_by_path": each kernel's
      launches on the paths of phases 27-29, 31 and 32, B6's and B7's
      from the record kernel's tier counts.
+ 34. tracing and debug checks (utils/tracing.py, utils/debug.py) on
+     Escape Room at 4096 worlds: 5 steps under profile_trace, each
+     node's device ms ("step.<node>" spans), B1-B3 launched under
+     step.physics_step and B4 under step.er_post (the launch counters
+     read around each node; the profiler's own links printed beside);
+     the node annotation's cost a step (a node_scope timed alone, and
+     steps in turns with and without it): under 1 %; 20 steps under
+     debug.checked bit-identical to the plain steps; a NaN put into one
+     body's velocity raises naming step.physics_step;
+ 35. the roofline: phase 16's (bytes, operations) of every row, counted
+     by utils/roofline.py, equal to INLINED_COUNTS (what the script's
+     own counts gave on the same seeded scenes) and their bounds;
+     bench_roofline of Escape Room (4096 worlds) and Hide & Seek's
+     pixels (1024 worlds) at phases 8 and 12's env-steps/s; the render
+     floor's live rows (utils/roofline.render_live_rows, from the mesh
+     and the view masks) give B5's bound on phase 8's planes exactly;
+ 36. the navmesh (utils/navmesh.py): a 64 x 64 quad grid (8192
+     triangles) at 16,384 worlds: sample_point, locate, shortest_dists,
+     next_hop walked until every world is at its goal; 8 worlds again on
+     the CPU (triangles and every hop equal, points within 2e-6); ms a
+     batched query;
+ 37. worlds sharded (parallel/mesh.py): Escape Room's 4096 worlds as 2 x
+     2048 and 4 x 1024 shards stepped in turn, 20 steps: the joined
+     exports (every step) and state equal the unsharded sim's bit for
+     bit, B1-B4 launched once a step in each shard; then
+     examples/torch_train_ppo_distributed.py at 1024 worlds for 25
+     updates, one rank a card over NCCL (this process on one card,
+     torchrun on more), the parameters bit-identical across ranks, no
+     kernel launched; updates/s and the episode length;
+ 38. the viewer (viz/, examples/torch_viewer_demo.py) on Escape Room at
+     4096 worlds: ticks through B1-B4 (once a tick each); a 320 x 240
+     flycam frame of world 0 on the card against the CPU's from the same
+     state (depth within 1e-4, rgb off by more than 0.02 at under 0.2 %
+     of pixels); the top-down PNG decoded by assets/png.decode_png; the
+     Recorder over 20 steps saved and loaded equal; PlaybackViewer's
+     /meta, /frame.png and /topdown.png over 127.0.0.1.
 
 Any failure raises (non-zero exit). The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -266,6 +304,16 @@ import sys
 import time
 
 import numpy as np
+
+# the card's peaks, the per-kernel work counts and their bound, and the
+# profiler's device share: one home for each, in the package
+from madrona_tpu_torch.utils.roofline import (
+    bound, broadphase_cost, contacts_cost, fused_cost, hh_record_cost,
+    lidar_cost, lidar_same_work_cost, lidar_visible, nbytes, ray_counts,
+    raycast_cost, raycast_every_row_cost, solver_cost,
+)
+from madrona_tpu_torch.utils.tracing import device_profile
+from madrona_tpu_torch.utils.tree import tree_leaves
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -352,77 +400,6 @@ QUERY_RAYS = 30           # rays an agent for raycast_bodies
 QUERY_CPU_W = 256         # worlds of the GJK check run again on the CPU
 GJK_TOL = 1e-5            # card vs CPU, squared distance, relative
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor op/s
-PEAK_BYTES = 3.35e12
-PEAK_F32 = 67e12
-# operation counts of the two kernels' arithmetic (see csrc/*.cu):
-# broadphase: ~111 per body (rotation matrix 33, center/extent 21,
-# center row sums 18, extent row sums 24, velocity expansion 15) and ~12
-# per pair (6 compares, 6 ands/branches); lidar: what the function
-# needs, the origin's box-local coordinates once a (world, agent, box),
-# ~39 (rotation 30, subtraction 3, guards 3, divisions 3), ~78 a (ray,
-# box) the self-mask shows (one rotation 30, reciprocals and divisions
-# 15, slab 22, hit test and running min 11) and one test a hidden one:
-# the lidar's bound. Beside it, the same-work yardstick of the source
-# csrc/lidar.cu replaced, ~120 every (ray, box) (two quaternion rotations
-# 60, guards and divisions 27, slab 22, the hit test and running min 11).
-BP_OPS_PER_BODY = 111
-BP_OPS_PER_PAIR = 12
-LIDAR_OPS_PER_RAY_BOX = 120
-LIDAR_OPS_PER_ORIGIN_BOX = 39
-LIDAR_OPS_PER_VISIBLE_RAY_BOX = 78
-# contacts (csrc/contacts.cu), counted per lane from this run's data.
-# A hull to world space ~825 (8 vertices x 36, 6 planes x 85, center 27).
-# A hull-hull candidate up to its separation test ~3,800: two hulls 1,650,
-# face queries both ways 672 (2 x 6 faces x 8 vertices x 7), edge query
-# ~1,500 (9 direction pairs x ~125, the directions' transforms ~400).
-# A face manifold ~3,300 (two polygons 288, side planes 68, 20 clip
-# candidates ~860, projection 240, the reduction over 20 points ~1,800);
-# an edge contact ~2,000 (two witness-edge sweeps of 12 edges x ~80,
-# closest point ~60). A hull-plane candidate ~910 (hull 825, vertex
-# distances 56, plane normal 30); its manifold ~610 (incident face 30,
-# polygon 144, projection 48, reduction over 4 points ~350, tail 40).
-HH_OPS_CANDIDATE = 3800
-HH_OPS_FACE = 3300
-HH_OPS_EDGE = 2000
-HP_OPS_CANDIDATE = 910
-HP_OPS_CONTACT = 610
-# solver (csrc/solver.cu), per substep: integrate ~200 per movable body;
-# a live contact's position pass ~700 per Jacobi iteration, its velocity
-# pass ~350 plus ~450 per live manifold point; a live joint ~900.
-SOLVER_OPS_BODY = 200
-SOLVER_OPS_CONTACT_POS = 700
-SOLVER_OPS_CONTACT_VEL = 350
-SOLVER_OPS_POINT = 450
-SOLVER_OPS_JOINT = 900
-# raycast (csrc/raycast.cu). Per (ray, triangle) primary test ~30 (three
-# 3-term dot products 15, abs, sign folds 2, division, t, six compares
-# and their ands, the running minimum); the shadow test ~28 more where on
-# (three dot products 15, three affine terms 6, add, five compares and
-# ands). Per ray ~40 (16 attribute reads, shade 6, compose and sky select
-# 9, eight plane writes), ~90 more with materials (uv 8, texel addresses
-# ~40, 12 taps and their weights 36).
-# hull-hull record (csrc/hh_narrowphase.cu): the contacts kernel's
-# hull-hull lane, so HH_OPS_* in the edge_dirs tier. In the edge_pairs
-# tier a candidate costs ~19,600 up to its separation test: two hulls
-# 1,650, face queries 672, 24 edges to world space (2 points x 36, 2
-# normals x 85: ~240 each, 5,800), 144 pairs x ~80 (Gauss-map test 38,
-# cross and length 14, normalize 5, orientation 8, separation 8, the
-# running best 7); its edge contact ~60 (no witness sweep).
-HH_OPS_CANDIDATE_PAIRS = 19600
-HH_OPS_EDGE_PAIRS = 60
-# fused step (csrc/fused_step.cu): the predicted-pose integrate ~200 per
-# body; the lanes as above; a sphere lane ~3,100 against a hull (hull 825,
-# face distances 42, vertices 64, 12 edges x ~50, 6 faces x ~260, tail
-# 40), ~40 against a plane, ~30 against a sphere; then the solver's
-# counts over all rows.
-SPHERE_OPS_HULL = 3100
-SPHERE_OPS_PLANE = 40
-SPHERE_OPS_SPHERE = 30
-RAY_OPS_PAIR = 30
-RAY_OPS_PAIR_SHADOW = 28
-RAY_OPS_RAY = 40
-RAY_OPS_RAY_MATERIALS = 90
 
 
 def card_line() -> str:
@@ -544,63 +521,6 @@ def resource_usage(libs):
     return usage
 
 
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def referenced_row_bytes(poses, obj, *cands) -> int:
-    """Bytes of poses [N, F, W] and obj [N, W] that a narrowphase kernel
-    must read: the rows that a live candidate of ``cands`` ([W, P, 2]
-    rows, sentinel N) names, each (row, world) once."""
-    import torch
-
-    n, f, w = poses.shape
-    used = torch.zeros((n + 1, w), dtype=torch.bool, device=poses.device)
-    worlds = torch.arange(w, device=poses.device)
-    for c in cands:
-        live = (c[..., 0] < n) & (c[..., 1] < n)                # [W, P]
-        for side in (0, 1):
-            rows = torch.where(live, c[..., side], n).long()
-            used[rows, worlds[:, None].expand_as(rows)] = True
-    return int(used[:n].sum()) * (f * poses.element_size()
-                                  + obj.element_size())
-
-
-def live_lane_bytes(ref, alt, con, pts, num) -> int:
-    """Bytes of contact tables [.., C, W] that a solver must read: every
-    lane's count, and the rows, reduced contact and points of the live
-    lanes."""
-    per_lane = (ref.element_size() + alt.element_size()
-                + con.shape[0] * con.element_size()
-                + pts.shape[0] * pts.element_size())
-    return nbytes(num) + int((num > 0).sum()) * per_lane
-
-
-def broadphase_cost(pack, cands):
-    """(bytes, operations) of one broadphase launch: the body pack in,
-    the candidate lists out; every body transformed, every pair tested."""
-    _, n, w = pack.shape
-    b = nbytes(pack, *[getattr(cands, f) for f in (
-        "hh", "hh_num", "hp", "hp_num", "sp", "sp_num", "sp_kind",
-        "overflow")])
-    return b, w * (BP_OPS_PER_BODY * n + BP_OPS_PER_PAIR * n * (n - 1) // 2)
-
-
-def contacts_cost(c_in, om, c_out, cnt):
-    """(bytes, operations) of one contacts launch on inputs c_in (hh, hp,
-    poses, obj) with outputs c_out and the scene's lane counts (from
-    check_contacts): the pose rows a live candidate names, the hull
-    tables, the tables out; the live lanes' arithmetic."""
-    b = (nbytes(c_in[0], c_in[1], om.hull_pack, om.hull_dirs_pack, *c_out)
-         + referenced_row_bytes(c_in[2], c_in[3], c_in[0], c_in[1]))
-    ops = (HH_OPS_CANDIDATE * cnt["hh_candidates"]
-           + HH_OPS_FACE * (cnt["hh_live"] - cnt["hh_1pt"])
-           + HH_OPS_EDGE * cnt["hh_1pt"]
-           + HP_OPS_CANDIDATE * cnt["hp_candidates"]
-           + HP_OPS_CONTACT * cnt["hp_live"])
-    return b, ops
-
-
 def contacts_split(name, c_in, om, card):
     """Device ms of the contacts kernel on the hull-hull candidates alone
     (no hull-plane slot) and on the hull-plane candidates alone: how its
@@ -616,26 +536,6 @@ def contacts_split(name, c_in, om, card):
     print(f"contacts at the {name} shape, device ms: hull-hull lanes alone "
           f"(P={hh.shape[1]}) {hh_ms:.4f}, hull-plane lanes alone "
           f"(P={hp.shape[1]}) {hp_ms:.4f} ({card})")
-
-
-def solver_cost(cfg, state, param, c_out, jargs, cnt, n_joints, s_out):
-    """(bytes, operations) of one substep-solver launch: state, params,
-    joints and out once, the live contact lanes; per substep every row
-    of the dynamic range, each ok contact, live manifold point and live
-    joint."""
-    import torch
-
-    b = nbytes(state, param, *jargs, s_out) + live_lane_bytes(*c_out)
-    live_points = int(torch.where(c_out[2][7] > 0.5, c_out[4], 0).sum())
-    n, w = state.shape[1:]
-    d0, d1 = cfg.solver_dynamic_range or (0, n)
-    ops = cfg.substeps * (
-        SOLVER_OPS_BODY * (d1 - d0) * w
-        + (SOLVER_OPS_CONTACT_POS * cfg.jacobi_iters + SOLVER_OPS_CONTACT_VEL)
-        * cnt["ok"]
-        + SOLVER_OPS_POINT * live_points
-        + SOLVER_OPS_JOINT * n_joints)
-    return b, ops
 
 
 def random_scene(rs, om, n_obj_hi, n, crowded):
@@ -1548,34 +1448,6 @@ def raycast_compare(name, planes, opts):
     return max(d), got
 
 
-def ray_ops(planes, opts, n_rays, out):
-    """The operations a raycast run needs on this run's data: the primary
-    test of every real ray against the live rows only (a row whose
-    columns 0..2, A, are all zero has det 0 for every ray and cannot
-    hit); the shadow test of every ray that hit against the live rows
-    whose shadow row is on (column 22, |det_s|, nonzero); per ray the
-    shading, and with materials the atlas sample of every ray that hit.
-    Returns (ops, live rows, (hit ray, shadow row) pairs, rays that hit)."""
-    from madrona_tpu_torch.ops import raycast_cuda as rck
-
-    setup = planes[0]
-    wv = setup.shape[0]
-    live = (setup[..., :3] != 0).any(dim=-1)                   # [WV, T]
-    live_rows = int(live.sum())
-    hits = (out[:, rck.O_T, :n_rays] < opts["t_max"]).sum(dim=1)  # [WV]
-    hit_rays = int(hits.sum())
-    shadow_pairs = 0
-    if opts["shadows"]:
-        shadow_rows = (live & (setup[..., 22] != 0)).sum(dim=1)
-        shadow_pairs = int((hits * shadow_rows).sum())
-    ops = (n_rays * live_rows * RAY_OPS_PAIR
-           + shadow_pairs * RAY_OPS_PAIR_SHADOW
-           + wv * n_rays * RAY_OPS_RAY
-           + (hit_rays * RAY_OPS_RAY_MATERIALS if opts["use_materials"]
-              else 0))
-    return ops, live_rows, shadow_pairs, hit_rays
-
-
 def synthetic_ray_planes(rs, wv, t_pad, r_pad, tex, device):
     """Random raycast inputs (setup, attrs, dl, atlas) on ``device`` with
     exact ties, disabled shadow rows and dead rows; the CPU tests make
@@ -2270,27 +2142,6 @@ def check_projectiles(make_sim, Projectiles, kernels, card):
           f"{PROJ_GROW_AT + 1}; {totals[0]} spawned, {totals[1]} destroyed; "
           "every integer output equal at every step, live positions within "
           f"{PROJ_POS_TOL}, no kernel launched ({card})")
-
-
-def device_profile(run, calls=PROFILE_STEPS, host=True):
-    """(device events (kernels, copies, fills) a call, device ms a call)
-    of ``run()`` under torch.profiler over ``calls`` calls; (None, None)
-    where the profiler recorded no device time. ``host=False`` records
-    the device alone (much less to collect on a long call)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
-    with profile(activities=acts) as prof:
-        for _ in range(calls):
-            run()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type.name == "CUDA"]
-    busy_us = sum(e.self_device_time_total for e in events)
-    if not busy_us:
-        return None, None
-    return sum(e.count for e in events) / calls, busy_us / 1e3 / calls
 
 
 def launches_per_step(sim, acts, steps=PROFILE_STEPS):
@@ -3638,26 +3489,6 @@ def check_ppo_pixels(ppo_px, kernels, b_kernels, card):
     return out
 
 
-def state_leaves(state):
-    """(path, tensor) of every tensor of a SimState."""
-    import torch
-
-    out = []
-
-    def walk(x, path):
-        if dataclasses.is_dataclass(x):
-            for f in dataclasses.fields(x):
-                walk(getattr(x, f.name), path + (f.name,))
-        elif isinstance(x, dict):
-            for k in sorted(x):
-                walk(x[k], path + (k,))
-        elif torch.is_tensor(x):
-            out.append(("/".join(path), x))
-
-    walk(state, ())
-    return out
-
-
 def check_checkpoints(make_sim, EscapeRoom, ppo, ckpt, kernels, card):
     """Phase 33: masked save and restore of the Escape Room state at
     CKPT_W worlds (half the worlds), its npz round trip bit for bit, and
@@ -3685,9 +3516,9 @@ def check_checkpoints(make_sim, EscapeRoom, ppo, ckpt, kernels, card):
     s2 = run(s1, 2 * CKPT_STEPS)
     s3 = ckpt.restore_worlds(s2, buf, half)
     n_leaves = 0
-    for (path, a), (_, b1), (_, b2) in zip(state_leaves(s3),
-                                           state_leaves(s1),
-                                           state_leaves(s2)):
+    for (path, a), (_, b1), (_, b2) in zip(tree_leaves(s3),
+                                           tree_leaves(s1),
+                                           tree_leaves(s2)):
         n_leaves += 1
         if a.dim() == 0:
             ok = torch.equal(a, b2)
@@ -3707,7 +3538,7 @@ def check_checkpoints(make_sim, EscapeRoom, ppo, ckpt, kernels, card):
         back = ckpt.load_npz(path, s4)
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
-    for (p, a), (_, b) in zip(state_leaves(back), state_leaves(s4)):
+    for (p, a), (_, b) in zip(tree_leaves(back), tree_leaves(s4)):
         if a.device != b.device or a.dtype != b.dtype or not torch.equal(a, b):
             raise AssertionError(f"npz round trip: {p} differs")
     print(f"checkpoint: escape_room {CKPT_W} worlds, save_worlds / "
@@ -3743,8 +3574,8 @@ def check_checkpoints(make_sim, EscapeRoom, ppo, ckpt, kernels, card):
     bad = [i for i, (a, c) in enumerate(zip(
         [p for n in nets_a for p in n.parameters()],
         [p for n in nets_c for p in n.parameters()])) if not torch.equal(a, c)]
-    bad += [p for (p, a), (_, c) in zip(state_leaves(st_a),
-                                        state_leaves(st_c))
+    bad += [p for (p, a), (_, c) in zip(tree_leaves(st_a),
+                                        tree_leaves(st_c))
             if not torch.equal(a, c)]
     if bad:
         raise AssertionError(f"ppo resume: differs from the straight run at "
@@ -3757,6 +3588,594 @@ def check_checkpoints(make_sim, EscapeRoom, ppo, ckpt, kernels, card):
           f"action generator's state), resumed in a fresh make_train for "
           f"{CKPT_PPO_UPDATES} more: bit-identical to "
           f"{2 * CKPT_PPO_UPDATES} straight updates ({card})")
+
+
+# ---- phases 34-38: the shell (tracing and debug checks, the roofline,
+# the navmesh, worlds sharded over processes, the viewer, recorder and
+# playback)
+TRACE_STEPS = 5           # Escape Room steps under profile_trace
+CHECKED_STEPS = 20        # steps under utils.debug.checked
+ANNOT_CALLS = 20000       # node_scope entries timed with no profiler on
+NAV_W = 16384             # worlds of the navmesh queries
+NAV_GRID = 64             # the quad grid's side: 8192 triangles
+NAV_CPU_W = 8             # worlds carried to the CPU
+NAV_TOL = 2e-6            # sampled points, card against the CPU
+SHARD_COUNTS = (2, 4)     # Escape Room's 4096 worlds as 2 and 4 shards
+PAR_STEPS = 20
+DPPO_UPDATES = 25         # torch_train_ppo_distributed at its 1024 worlds
+VIZ_TICKS = 5             # viewer ticks with the launches counted
+VIZ_FRAME = (320, 240)
+REC_STEPS = 20
+REC_WORLDS = 8            # worlds of the recorded trajectory
+FRAME_DEPTH_TOL = 1e-4    # the dense tracer's bounds, card against CPU
+FRAME_RGB_TOL = 0.02      # (tests/test_torch_raycast_glue.py (b))
+FRAME_RGB_SHARE = 0.002
+# (bytes, operations) of each phase 16 row that this script's own counts
+# gave on its seeded scenes before they moved to utils/roofline.py (the
+# same scenes give the same counts, so each must repeat)
+INLINED_COUNTS = {
+    "broadphase": (8146944, 19869696),
+    "contacts": (9202796, 48984900),
+    "substep_solver": (27117464, 399900400),
+    "lidar": (7307304, 370851840),
+    "lidar same-work yardstick": (7307304, 589824000),
+    "raycast": (647106560, 70128762880),
+    "raycast every-row yardstick": (647106560, 85228257280),
+    "raycast_blas": (647114752, 113951514256),
+    "hh_narrowphase_sublane": (3155000, 246700),
+    "hh_narrowphase": (3154616, 967940),
+    "hh_narrowphase edge_dirs crowded": (4771728, 195533400),
+    "hh_narrowphase edge_pairs crowded": (4771440, 682225160),
+    "fused_step": (25433280, 455438900),
+    "fused_step edge_dirs spheres": (25007296, 958979420),
+    "fused_step edge_pairs spheres": (25007296, 958949520),
+    "broadphase hide_seek": (22495232, 43352064),
+    "contacts hide_seek": (38345280, 674644430),
+    "substep_solver hide_seek": (85680296, 1619959800),
+    "fused_step hide_seek": (72882752, 2315909430),
+}
+# the kernel symbol of each main-path kernel in the profiler's names
+B_KERNELS = {"B1": "broadphase_kernel", "B2": "contacts_kernel",
+             "B3": "solver_kernel", "B4": "lidar_kernel"}
+
+
+def with_nan_velocity(state, world=1, row=20):
+    """``state`` with a NaN in one body's (an agent's) linear velocity."""
+    t = state.tables["RigidBody"]
+    cols = dict(t.columns)
+    vel = dict(cols["Velocity"])
+    lin = vel["linear"].clone()
+    lin[world, row, 0] = float("nan")
+    vel["linear"] = lin
+    cols["Velocity"] = vel
+    tables = dict(state.tables)
+    tables["RigidBody"] = dataclasses.replace(t, columns=cols)
+    return dataclasses.replace(state, tables=tables)
+
+
+def launches_by_node(sim, kernels, inputs):
+    """{node: [launches of each counter]} of one step of ``sim`` from
+    its state, each node's launches read around it."""
+    graph = sim.executor.graphs["step"]
+    saved = [n.fn for n in graph.nodes]
+    found = {}
+
+    def counted(name, fn):
+        def run(sm, state, key):
+            before = [k.launches for k in kernels]
+            out = fn(sm, state, key)
+            found[name] = [k.launches - b for k, b in zip(kernels, before)]
+            return out
+        return run
+
+    try:
+        for n in graph.nodes:
+            n.fn = counted(f"{graph.name}.{n.name}", n.fn)
+        sim.step_fn()(sim.state, inputs)
+    finally:
+        for n, fn in zip(graph.nodes, saved):
+            n.fn = fn
+    return found
+
+
+def kernels_by_node_window(trace_path, nodes):
+    """({node: device ms a profiled run}, {node: {kernel: launches}}) from
+    a Chrome trace: a node's window on the card runs from the start of
+    its GPU annotation range to the start of the next node's. The stream
+    runs the kernels in launch order, so a kernel the profiler did not
+    link to its host op still falls in the window of the node that
+    launched it (unless it is that node's first kernel)."""
+    import bisect
+
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    ann = sorted((e["ts"], e["name"]) for e in events
+                 if e.get("cat") == "gpu_user_annotation"
+                 and e.get("name") in nodes)
+    starts = [t for t, _ in ann]
+    ms = {n: 0.0 for n in nodes}
+    names = {n: {} for n in nodes}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        i = bisect.bisect_right(starts, e["ts"]) - 1
+        if i >= 0:
+            node = ann[i][1]
+            ms[node] += e.get("dur", 0) / 1e3
+            names[node][e["name"]] = names[node].get(e["name"], 0) + 1
+    return ms, names
+
+
+def check_tracing_debug(make_sim, EscapeRoom, kernels, acts, card):
+    """Phase 34: Escape Room at W worlds under profile_trace (each node's
+    device ms, the kernels under each node), the node annotation's cost a
+    step, CHECKED_STEPS steps under utils.debug.checked bit-identical to
+    the plain steps, and a NaN velocity reported by the physics node."""
+    import contextlib
+    import tempfile
+
+    import torch
+    from madrona_tpu_torch.utils import debug, tracing
+
+    sim = make_sim(EscapeRoom(), num_worlds=W, seed=0, device=DEV)
+    reset = torch.zeros((W,), dtype=torch.int32, device=DEV)
+    fn = sim.step_fn()
+    state = sim.state
+    for i in range(2):
+        state, _ = fn(state, {"action": acts[i], "reset": reset})
+    sim.state = state
+    inputs = {"action": acts[2], "reset": reset}
+    graph = sim.executor.graphs["step"]
+    nodes = [f"{graph.name}.{n.name}" for n in graph.nodes]
+
+    # each node's device ms and the kernels under it
+    with tempfile.TemporaryDirectory() as logdir:
+        with tracing.profile_trace(logdir) as prof:
+            s = state
+            for _ in range(TRACE_STEPS):
+                s, _ = fn(s, inputs)
+            torch.cuda.synchronize()
+        trace_mb = os.path.getsize(prof.trace_path) / 2 ** 20
+        node_ms, by_window = kernels_by_node_window(prof.trace_path, nodes)
+    spans = {e.key for e in prof.key_averages()}
+    missing = [n for n in nodes if n not in spans]
+    if missing:
+        raise AssertionError(f"profile: no span named {missing}")
+    print(f"profile of {TRACE_STEPS} steps at {W} worlds (Chrome trace "
+          f"{trace_mb:.1f} MiB), device ms a step by node (kernels in the "
+          "node's window): " + ", ".join(
+              f"{n} {node_ms[n] / TRACE_STEPS:.4f}" for n in nodes)
+          + f" ({card})")
+    counted = launches_by_node(sim, kernels, inputs)
+    for b, sym in B_KERNELS.items():
+        ran = [n for n in nodes if counted[n][list(B_KERNELS).index(b)]]
+        seen = [n for n in nodes if any(sym in k for k in by_window[n])]
+        print(f"  {b} ({sym}): launched under {ran} (counters), in the "
+              f"window of {seen or 'no node'} (the trace)")
+        want = ["step.er_post"] if b == "B4" else ["step.physics_step"]
+        if ran != want or counted[ran[0]][list(B_KERNELS).index(b)] != 1:
+            raise AssertionError(f"{b}: launched under {ran}, not once "
+                                 f"under {want}")
+
+    # the annotation's cost: node_scope entered and left with no profiler
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ANNOT_CALLS):
+        with tracing.node_scope("step.annotation_cost"):
+            pass
+    scope_us = (time.perf_counter() - t0) * 1e6 / ANNOT_CALLS
+
+    def step_ms(annotate):
+        saved = tracing.node_scope
+        if not annotate:
+            tracing.node_scope = lambda name: contextlib.nullcontext()
+        try:
+            s = state
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(STEPS):
+                s, _ = fn(s, inputs)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / STEPS
+        finally:
+            tracing.node_scope = saved
+
+    turns = [step_ms(a) for a in (True, False, False, True)]
+    share = len(nodes) * scope_us / 1e3 / (sum(turns[1:3]) / 2)
+    print(f"node annotation: {scope_us:.3f} us a node_scope, {len(nodes)} "
+          f"a step: {100 * share:.4f} % of the step; steps in turns "
+          f"(annotated, bare, bare, annotated) ms: "
+          + ", ".join(f"{t:.3f}" for t in turns) + f" ({card})")
+    if share >= 0.01:
+        raise AssertionError(f"node annotation {100 * share:.3f} % >= 1 %")
+
+    # checked steps: the plain steps' results bit for bit
+    chk = debug.checked(fn)
+    s_plain, s_chk = state, state
+    t_plain = t_chk = 0.0
+    for i in range(CHECKED_STEPS):
+        inp = {"action": acts[i % STEPS], "reset": reset}
+        t0 = time.perf_counter()
+        s_plain, o_plain = fn(s_plain, inp)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        s_chk, o_chk = chk(s_chk, inp)
+        torch.cuda.synchronize()
+        t_plain += t1 - t0
+        t_chk += time.perf_counter() - t1
+        for k in o_plain:
+            if not torch.equal(o_plain[k], o_chk[k]):
+                raise AssertionError(f"checked step {i}: {k} differs")
+    for (path, a), (_, b) in zip(tree_leaves(s_plain),
+                                 tree_leaves(s_chk)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"checked steps: {path} differs")
+    print(f"checked: {CHECKED_STEPS} steps bit-identical to the plain "
+          f"steps; {t_chk * 1e3 / CHECKED_STEPS:.1f} ms a checked step, "
+          f"{t_plain * 1e3 / CHECKED_STEPS:.1f} plain ({card})")
+    try:
+        chk(with_nan_velocity(state), inputs)
+    except debug.CheckError as e:
+        if "step.physics_step" not in str(e):
+            raise AssertionError(f"checked named another place: {e}")
+        print(f"checked: a NaN in one body's velocity raises: {e}")
+    else:
+        raise AssertionError("checked let a NaN velocity through")
+
+
+def check_roofline(work, rates, HideSeek, card):
+    """Phase 35: every phase 16 bound from utils/roofline.py, its counts
+    equal to INLINED_COUNTS; bench_roofline of Escape Room and Hide &
+    Seek's pixels at their measured env-steps/s; the render floor equal
+    to B5's bound on phase 8's planes."""
+    from madrona_tpu_torch.models.escape_room import EscapeRoom
+    from madrona_tpu_torch.utils import roofline
+
+    print(f"roofline: NVIDIA H100 SXM data sheet peaks "
+          f"{roofline.PEAK_BYTES:.3g} B/s, {roofline.PEAK_F32:.3g} float32 "
+          f"op/s (700 W); this card: {card}")
+    if set(work) != set(INLINED_COUNTS):
+        raise AssertionError(f"roofline rows {sorted(work)}")
+    for name, (b, ops) in work.items():
+        ms, by = bound(b, ops)
+        print(f"  {name}: bound {ms:.5f} ms ({by}: {b} B, {ops} ops)")
+        if (b, ops) != INLINED_COUNTS[name]:
+            raise AssertionError(f"{name}: ({b}, {ops}) != the inlined "
+                                 f"counts' {INLINED_COUNTS[name]}")
+    hs = HideSeek(render_size=HS_RENDER)
+    for what, env, w, rate in (
+            ("escape_room", EscapeRoom(), W, rates["escape_room"]),
+            (f"hide_seek_pixels{HS_RENDER}", hs, HS_W,
+             rates["hide_seek_pixels"])):
+        rl = roofline.bench_roofline(w, rate, env)
+        if set(rl) != {"model", "sol_env_steps_per_sec", "pct_of_roofline"}:
+            raise AssertionError(f"bench_roofline {what}: {rl}")
+        print(f"bench_roofline {what} ({w} worlds, {rate:.1f} env-steps/s): "
+              f"{rl} ({card})")
+    # the render floor counts the live rows of phase 8's planes: at the
+    # flat-colour scene (no shadow, no atlas) it is B5's bound
+    floor_s = roofline.render_floor_s(HS_W, 4, HS_RENDER ** 2,
+                                      roofline.render_live_rows(hs))
+    if floor_s != work["raycast"][1] / roofline.PEAK_F32:
+        raise AssertionError(f"render floor {floor_s * 1e3:.5f} ms is not "
+                             f"B5's bound on phase 8's planes")
+    print(f"render floor: {roofline.render_live_rows(hs)} live rows a "
+          f"world, {floor_s * 1e3:.5f} ms a step of {HS_W} worlds, equal "
+          f"to B5's bound on phase 8's planes")
+
+
+def grid_navmesh(n, device):
+    """An n x n grid of unit quads in the z = 0 plane."""
+    from madrona_tpu_torch.utils.navmesh import build_navmesh
+
+    verts = np.array([[x, y, 0.0] for y in range(n + 1)
+                      for x in range(n + 1)], np.float32)
+    idx = np.arange((n + 1) * (n + 1)).reshape(n + 1, n + 1)
+    polys = np.stack([idx[:-1, :-1], idx[:-1, 1:], idx[1:, 1:],
+                      idx[1:, :-1]], axis=-1).reshape(-1)
+    return build_navmesh(verts, polys, [4] * (n * n), device=device)
+
+
+def navmesh_walk(mesh, keys):
+    """(points, start triangles, goal triangles, the walk [hops + 1,
+    worlds]) of one start and one goal sampled a world, walked by
+    next_hop until every world is at its goal."""
+    import torch
+    from madrona_tpu_torch.utils import rng as _rng
+
+    pts, tri = mesh.sample_point(_rng.split_i(keys, 0))
+    start = mesh.locate(pts)
+    goal = mesh.locate(mesh.sample_point(_rng.split_i(keys, 1))[0])
+    dists = mesh.shortest_dists(goal)
+    walk = [start]
+    for _ in range(mesh.num_tris):
+        if torch.equal(walk[-1], goal):
+            break
+        walk.append(mesh.next_hop(walk[-1], goal, dists=dists))
+    return pts, tri, start, goal, torch.stack(walk)
+
+
+def check_navmesh(card):
+    """Phase 36: a NAV_GRID x NAV_GRID quad-grid navmesh at NAV_W worlds
+    on the card: sample_point, locate, next_hop walked to the goal; the
+    first NAV_CPU_W worlds again on the CPU (triangles and hops equal,
+    points within NAV_TOL); ms a query."""
+    import torch
+    from madrona_tpu_torch.utils import rng as _rng
+
+    mesh = grid_navmesh(NAV_GRID, DEV)
+    keys = _rng.split_i(_rng.key(7, device=DEV),
+                        torch.arange(NAV_W, device=DEV))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pts, tri, start, goal, walk = navmesh_walk(mesh, keys)
+    torch.cuda.synchronize()
+    walk_s = time.perf_counter() - t0
+    if not torch.equal(walk[-1], goal):
+        raise AssertionError("navmesh: a walk did not reach its goal")
+    if not bool((start == tri).float().mean() > 0.99):
+        raise AssertionError("navmesh: locate misses the sampled triangles")
+    cpu = navmesh_walk(grid_navmesh(NAV_GRID, "cpu"),
+                       keys[:NAV_CPU_W].cpu())
+    pt_err = float((cpu[0] - pts[:NAV_CPU_W].cpu()).abs().max())
+    for what, a, b in (("triangles", cpu[1], tri), ("starts", cpu[2], start),
+                       ("goals", cpu[3], goal)):
+        if not torch.equal(a, b[:NAV_CPU_W].cpu()):
+            raise AssertionError(f"navmesh: {what} differ from the CPU's")
+    hops = walk[:, :NAV_CPU_W].cpu()
+    if hops.shape[0] < cpu[4].shape[0] or not torch.equal(
+            hops[:cpu[4].shape[0]], cpu[4]) or not bool(
+            (hops[cpu[4].shape[0]:] == cpu[3]).all()):
+        raise AssertionError("navmesh: hops differ from the CPU's")
+    if not pt_err <= NAV_TOL:
+        raise AssertionError(f"navmesh: points {pt_err} > {NAV_TOL}")
+
+    def ms(fn, iters=5):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / iters
+
+    dists = mesh.shortest_dists(goal)
+    times = {
+        "sample_point": ms(lambda: mesh.sample_point(keys)),
+        "locate": ms(lambda: mesh.locate(pts)),
+        "shortest_dists": ms(lambda: mesh.shortest_dists(goal), 1),
+        "next_hop (dists given)": ms(lambda: mesh.next_hop(start, goal,
+                                                           dists=dists)),
+    }
+    print(f"navmesh {NAV_GRID}x{NAV_GRID} grid ({mesh.num_tris} triangles), "
+          f"{NAV_W} worlds: walks of up to {walk.shape[0] - 1} hops reach "
+          f"their goals ({walk_s:.2f} s with the sampling, location and "
+          f"distances); {NAV_CPU_W} worlds on the CPU: triangles and hops "
+          f"equal, points within {pt_err!r}; ms a batched query: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+          + f" ({card})")
+
+
+def check_sharded_steps(make_sim, EscapeRoom, kernels, acts, card):
+    """Phase 37a: Escape Room at W worlds against the same worlds as 2 and
+    4 shards stepped in turn in one process, PAR_STEPS steps: the joined
+    exports (every step) and state (at the end) bit for bit; each main
+    path kernel launched once a step in each shard."""
+    import torch
+    from madrona_tpu_torch.parallel import mesh as pmesh
+
+    sim = make_sim(EscapeRoom(), num_worlds=W, seed=0, device=DEV)
+    fn = sim.step_fn()
+    reset = torch.zeros((W,), dtype=torch.int32, device=DEV)
+    start = sim.state
+    full, full_outs = start, []
+    for t in range(PAR_STEPS):
+        full, o = fn(full, {"action": acts[t], "reset": reset})
+        full_outs.append(o)
+    for n in SHARD_COUNTS:
+        shards = [pmesh.shard_state(start, pmesh.Mesh(r, n, full.rng.device))
+                  for r in range(n)]
+        for k in kernels:
+            k.launches = 0
+        for t in range(PAR_STEPS):
+            outs = []
+            for r in range(n):
+                inp = pmesh.shard_inputs({"action": acts[t], "reset": reset},
+                                         W, pmesh.Mesh(r, n, full.rng.device))
+                shards[r], o = fn(shards[r], inp)
+                outs.append(o)
+            joined = pmesh.join_shards(outs, W // n)
+            for key, v in full_outs[t].items():
+                if not torch.equal(joined[key], v):
+                    raise AssertionError(f"{n} shards: export {key} of step "
+                                         f"{t} differs")
+        launches = [k.launches for k in kernels]
+        if launches != [PAR_STEPS * n] * len(kernels):
+            raise AssertionError(f"{n} shards: launches {launches}")
+        leaves = tree_leaves(pmesh.join_shards(shards, W // n))
+        ref = tree_leaves(full)
+        if len(leaves) != len(ref) or not all(
+                torch.equal(a, b) for (_, a), (_, b) in zip(leaves, ref)):
+            raise AssertionError(f"{n} shards: the joined state differs")
+        print(f"escape_room {W} worlds as {n} x {W // n} shards stepped in "
+              f"turn, {PAR_STEPS} steps: exports and state bit-identical to "
+              f"the unsharded sim; B1-B4 launched {launches} times "
+              f"({PAR_STEPS} steps x {n} shards) ({card})")
+
+
+def check_distributed_ppo(torch_train_ppo_distributed, kernels, card):
+    """Phase 37b: torch_train_ppo_distributed at its 1024 worlds for
+    DPPO_UPDATES updates, one rank a card over NCCL (in this process on
+    one card, under torchrun on more), the parameters bit-identical
+    across ranks (the example's all_gather check); no kernel launched."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    n = torch.cuda.device_count()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    if n == 1:
+        env = {"RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1",
+               "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            ep_len, pi = torch_train_ppo_distributed.main(
+                ["--updates", str(DPPO_UPDATES)])
+            backend = dist.get_backend()
+            dist.destroy_process_group()
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        if backend != "nccl":
+            raise AssertionError(f"backend {backend}, not nccl")
+        if not ep_len > 25.0:
+            raise AssertionError(f"distributed PPO: episode length {ep_len}")
+    else:
+        out = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run",
+             f"--nproc_per_node={n}", f"--master_port={port}",
+             os.path.join(HERE, "examples", "torch_train_ppo_distributed.py"),
+             "--updates", str(DPPO_UPDATES)],
+            capture_output=True, text=True, timeout=900, cwd=HERE)
+        print(out.stdout[-2000:])
+        if out.returncode:
+            raise AssertionError(f"torchrun rc {out.returncode}: "
+                                 f"{out.stderr[-2000:]}")
+        ep_len, backend = float("nan"), "nccl"
+    secs = time.perf_counter() - t0
+    if any(k.launches for k in kernels):
+        raise AssertionError("distributed PPO launched a kernel")
+    print(f"torch_train_ppo_distributed: {n} rank(s) over {backend}, 1024 "
+          f"worlds, {DPPO_UPDATES} updates in {secs:.1f} s "
+          f"({DPPO_UPDATES / secs:.2f} updates/s), episode length "
+          f"{ep_len:.1f}, parameters bit-identical across ranks "
+          f"(all_gather) ({card})")
+
+
+def http_get(port, path):
+    import http.client
+
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        c.request("GET", path)
+        r = c.getresponse()
+        return r.status, r.getheader("Content-Type"), r.read()
+    finally:
+        c.close()
+
+
+def check_viz(torch_viewer_demo, kernels, card):
+    """Phase 38: examples/torch_viewer_demo's WebViewer on Escape Room at
+    W worlds on the card: tick through B1-B4; a VIZ_FRAME flycam frame of
+    world 0 on the card against the CPU's from the same state (the dense
+    tracer's bounds); the top-down PNG decoded; the Recorder over
+    REC_STEPS steps saved and loaded; PlaybackViewer's /meta, /frame.png
+    and /topdown.png over 127.0.0.1."""
+    import json as json_
+    import tempfile
+    import threading
+
+    import torch
+    from madrona_tpu_torch.assets.png import decode_png
+    from madrona_tpu_torch.viz import PlaybackViewer, Recorder
+    from madrona_tpu_torch.viz.web_viewer import frame_renderer
+
+    width, height = VIZ_FRAME
+    v = torch_viewer_demo.make_viewer(W, DEV, width=width, height=height)
+    for k in kernels:
+        k.launches = 0
+    for _ in range(VIZ_TICKS):
+        v.tick()
+    launches = [k.launches for k in kernels]
+    if launches != [VIZ_TICKS] * len(kernels) or v.step_count != VIZ_TICKS:
+        raise AssertionError(f"viewer ticks: launches {launches}, steps "
+                             f"{v.step_count}")
+    # a flycam pose that sees the first rooms' walls, doors and agents
+    v.cam_pos, v.pitch = np.array([0.0, -4.0, 8.0]), -0.5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rgb, depth = v.frame()
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - t0) * 1e3
+    cols = v.sim.state.tables["RigidBody"].columns
+    cpu_frame = frame_renderer(width, height, 90.0, v.mesh,
+                               v.render_obj, None, "cpu")
+    c_rgb, c_depth = cpu_frame(cols["Position"][0].cpu(),
+                               cols["Rotation"][0].cpu(),
+                               cols["Scale"][0].cpu(), v.cam_pos,
+                               v.cam_quat())
+    d_err = float((depth.cpu() - c_depth).abs().max())
+    bad = float(((rgb.cpu() - c_rgb).abs() > FRAME_RGB_TOL).float().mean())
+    hit = float((c_depth < 200.0).float().mean())
+    if not (d_err <= FRAME_DEPTH_TOL and bad < FRAME_RGB_SHARE and hit > 0.05):
+        raise AssertionError(f"flycam frame: depth {d_err}, rgb share {bad}, "
+                             f"hit share {hit}")
+    top = decode_png(v.topdown_png())
+    if top.shape[:2] != (256, 256):
+        raise AssertionError(f"top-down PNG {top.shape}")
+    print(f"viewer: {VIZ_TICKS} ticks at {W} worlds launched B1-B4 "
+          f"{launches} times; a {width}x{height} flycam frame in "
+          f"{frame_ms:.1f} ms, against the CPU's: depth within {d_err!r}, "
+          f"rgb off by > {FRAME_RGB_TOL} at {100 * bad:.3f} % of pixels, "
+          f"{100 * hit:.1f} % of rays hit; top-down PNG {top.shape} ({card})")
+
+    def body_column(name):
+        return lambda s, o: s.tables["RigidBody"].columns[name][:REC_WORLDS]
+
+    rec = Recorder(capture={c: body_column(c)
+                            for c in ("Position", "Rotation", "Scale")})
+    step, state = v.sim.step_fn(), v.sim.state
+    inputs = v.inputs_fn()
+    for _ in range(REC_STEPS):
+        state, outs = step(state, inputs)
+        rec.record(state, outs)
+    traj = rec.stacked()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "episode.npz")
+        rec.save(path)
+        loaded = Recorder.load(path)
+    if set(loaded) != set(traj) or not all(
+            np.array_equal(loaded[k], traj[k]) for k in traj):
+        raise AssertionError("recorder: the loaded trajectory differs")
+    if loaded["Position"].shape != (REC_STEPS, REC_WORLDS, 21, 3):
+        raise AssertionError(f"recorder: {loaded['Position'].shape}")
+    pb = PlaybackViewer(loaded, mesh=v.mesh,
+                        render_obj=v.render_obj, width=width,
+                        height=height, device=DEV)
+    srv = pb.make_server(port=0)
+    port = srv.server_address[1]
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        st, ct, body = http_get(port, "/meta")
+        meta = json_.loads(body)
+        if st != 200 or meta["steps"] != REC_STEPS or not meta["has_cam"] \
+                or meta["num_worlds"] != REC_WORLDS:
+            raise AssertionError(f"playback /meta: {st} {meta}")
+        for path, shape in (("/frame.png?t=10&w=3", (height, width)),
+                            ("/topdown.png?t=19&w=0", (256, 256))):
+            st, ct, body = http_get(port, path)
+            if st != 200 or ct != "image/png" or \
+                    decode_png(body).shape[:2] != shape:
+                raise AssertionError(f"playback {path}: {st} {ct}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=10)
+    print(f"recorder: {REC_STEPS} steps of {REC_WORLDS} worlds saved and "
+          f"loaded equal; playback on 127.0.0.1 served /meta, /frame.png "
+          f"({width}x{height}, traced on the card) and /topdown.png "
+          f"({card})")
 
 
 def main() -> int:
@@ -3778,8 +4197,10 @@ def main() -> int:
     from madrona_tpu_torch.models.projectiles import Projectiles
     import torch_train_ppo
     import torch_train_ppo_overcooked
+    import torch_train_ppo_distributed
     import torch_train_ppo_pixels
     import torch_train_reinforce
+    import torch_viewer_demo
     from madrona_tpu_torch.utils import checkpoint
     from madrona_tpu_torch.ops import (
         broadphase_cuda, contacts_cuda, cuda_build, fused_cuda,
@@ -3910,7 +4331,7 @@ def main() -> int:
     # ---- 12: Hide & Seek's two launches, their kernel launches counted
     hs_kernels = [broadphase_cuda.KERNEL, contacts_cuda.KERNEL,
                   solver_cuda.KERNEL, raycast_cuda.KERNEL, lidar_cuda.KERNEL]
-    _, hs_outs, _, _, hs_launches = check_path(
+    _, hs_outs, hs_sps, _, hs_launches = check_path(
         make_sim, pixels, HS_W, hs_kernels, [STEPS] * 4 + [0],
         "hide_seek pixels", {
             "rgb": (HS_W, 4, HS_RENDER, HS_RENDER, 3),
@@ -4038,7 +4459,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     lap("16")
-    # ---- 16: times at the main paths' shapes
+    # ---- 16: times at the main paths' shapes; each row's (bytes,
+    # operations) kept in work for phase 35
+    work = {}
     from madrona_tpu_torch.physics import api as papi
     from madrona_tpu_torch.physics import broadphase as bp
 
@@ -4048,6 +4471,7 @@ def main() -> int:
     pack = broadphase_cuda.pack_bodies(body, om)
     cands = broadphase_cuda.broadphase(pack, env.caps, env.cfg.dt)
     bp_bytes, bp_ops = broadphase_cost(pack, cands)
+    work["broadphase"] = (bp_bytes, bp_ops)
     bp_ms = kernel_ms(lambda: broadphase_cuda.broadphase(pack, env.caps,
                                                          env.cfg.dt))
     bp_route_ms = timed(lambda: broadphase_cuda.find_candidates_kernel(
@@ -4057,18 +4481,15 @@ def main() -> int:
 
     largs = lidar_inputs(sim)
     depth = lidar_cuda.lidar_obb(*largs)
-    li_bytes = nbytes(*largs[:6], depth)
     li_ms = kernel_ms(lambda: lidar_cuda.lidar_obb(*largs))
     li_plain_ms = timed(lambda: plain_lidar(largs), 50)
     # the bound of what the function needs (the row's) and the same-work
     # yardstick of the source lidar.cu replaced
     n_agents, n_inst = largs[3].shape
-    visible = int(largs[3].sum(dim=1).repeat_interleave(
-        largs[5].shape[2]).sum()) * W
-    li_ops = (LIDAR_OPS_PER_VISIBLE_RAY_BOX * visible
-              + (depth.numel() * n_inst - visible)
-              + LIDAR_OPS_PER_ORIGIN_BOX * W * n_agents * n_inst)
-    same_ops = depth.numel() * n_inst * LIDAR_OPS_PER_RAY_BOX
+    visible = lidar_visible(largs)
+    li_bytes, li_ops = work["lidar"] = lidar_cost(largs, depth)
+    _, same_ops = work["lidar same-work yardstick"] = lidar_same_work_cost(
+        largs, depth)
     li_bound_ms, li_bound_by = bound(li_bytes, li_ops)
     same_ms, _ = bound(li_bytes, same_ops)
     print(f"lidar at the escape_room shape (W={W}, I={n_inst}, A="
@@ -4081,7 +4502,8 @@ def main() -> int:
     # contacts and solver on the probe's Escape Room scene (phases 4, 5)
     c_in, c_out, cnt = scene["args"], scene["contacts"], scene["counts"]
     om_s = scene["om"]
-    co_bytes, co_ops = contacts_cost(c_in, om_s, c_out, cnt)
+    co_bytes, co_ops = work["contacts"] = contacts_cost(c_in, om_s, c_out,
+                                                          cnt)
     co_ms = kernel_ms(lambda: contacts_cuda.contacts(*c_in, om_s))
     contacts_split("escape_room", c_in, om_s, card)
     for tier, dirs in (("edge_dirs", True), ("edge_pairs", False)):
@@ -4093,7 +4515,7 @@ def main() -> int:
                         PLAIN_PHYSICS_ITERS)
     cfg = env.cfg
     s_in = (scene["state"], scene["param"], *c_out, *scene["jargs"])
-    so_bytes, so_ops = solver_cost(
+    so_bytes, so_ops = work["substep_solver"] = solver_cost(
         cfg, scene["state"], scene["param"], c_out, scene["jargs"], cnt,
         scene["n_joints"], solver_cuda.substep_solver(cfg, *s_in))
     so_ms = kernel_ms(lambda: solver_cuda.substep_solver(cfg, *s_in))
@@ -4111,15 +4533,7 @@ def main() -> int:
     def hh_cost(args, om_, h_cnt, dirs, plain_iters):
         hh_in = (args[0], args[2], args[3])
         rec = hh_narrowphase_cuda.hh_record(*hh_in, om_, dirs)
-        h_bytes = (nbytes(hh_in[0], om_.hull_pack, rec)
-                   + (nbytes(om_.hull_dirs_pack) if dirs else 0)
-                   + referenced_row_bytes(hh_in[1], hh_in[2], hh_in[0]))
-        face = h_cnt["hh_live"] - h_cnt["hh_1pt"]
-        h_ops = (HH_OPS_FACE * face + (
-            HH_OPS_CANDIDATE * h_cnt["hh_candidates"]
-            + HH_OPS_EDGE * h_cnt["hh_1pt"] if dirs else
-            HH_OPS_CANDIDATE_PAIRS * h_cnt["hh_candidates"]
-            + HH_OPS_EDGE_PAIRS * h_cnt["hh_1pt"]))
+        h_bytes, h_ops = hh_record_cost(*hh_in, om_, rec, h_cnt, dirs)
         h_ms = kernel_ms(lambda: hh_narrowphase_cuda.hh_record(*hh_in, om_,
                                                                dirs))
         h_plain_ms = (timed(lambda: hh_narrowphase_cuda.hh_record_plain(
@@ -4130,8 +4544,11 @@ def main() -> int:
     for tier, dirs in (("edge_dirs", True), ("edge_pairs", False)):
         hh_rows[tier] = hh_cost(c_in, om_s, scene["hh_counts"][tier], dirs,
                                 PLAIN_PHYSICS_ITERS)
+        work[("hh_narrowphase_sublane" if dirs else "hh_narrowphase")] = \
+            hh_rows[tier][2:]
         k_ms, _, b, ops = hh_cost(scene["crowded_args"], scene["crowded_om"],
                                   scene["crowded_hh_counts"][tier], dirs, 0)
+        work[f"hh_narrowphase {tier} crowded"] = (b, ops)
         b_ms, b_by = bound(b, ops)
         print(f"hh_narrowphase {tier} at the crowded scene (W={W}, P=8): "
               f"wrapper {k_ms[0]:.4f} ms/launch, device {k_ms[1]:.4f} ms, "
@@ -4139,41 +4556,27 @@ def main() -> int:
 
     # the fused step: the Escape Room state with joints (phase 7) and the
     # arranged Hide & Seek state (phase 11)
-    def fused_cost(scene_):
+    def fused_row(scene_):
         f_cfg, f_args, fc = (scene_["fused_cfg"], scene_["fused_args"],
                              scene_["fused_counts"])
         f_in = (*f_args[:8], f_args[8].hull_pack, f_args[8].hull_dirs_pack,
                 *scene_["jargs"])
         out = fused_cuda.fused_step(f_cfg, *f_args, *scene_["jargs"])
-        f_bytes = nbytes(*f_in, out)
         n_live_j = (int((scene_["jargs"][2][21] > 0.5).sum())
                     if scene_["jargs"] else 0)
-        f_ops = (
-            SOLVER_OPS_BODY * fc["movable"]
-            + HH_OPS_CANDIDATE * fc["hh_candidates"]
-            + HH_OPS_FACE * (fc["hh_live"] - fc["hh_1pt"])
-            + HH_OPS_EDGE * fc["hh_1pt"]
-            + HP_OPS_CANDIDATE * fc["hp_candidates"]
-            + HP_OPS_CONTACT * fc["hp_live"]
-            + SPHERE_OPS_HULL * fc["sp_hull"]
-            + SPHERE_OPS_PLANE * fc["sp_plane"]
-            + SPHERE_OPS_SPHERE * fc["sp_sphere"]
-            + f_cfg.substeps * (
-                SOLVER_OPS_BODY * fc["movable"]
-                + (SOLVER_OPS_CONTACT_POS * f_cfg.jacobi_iters
-                   + SOLVER_OPS_CONTACT_VEL) * fc["ok"]
-                + SOLVER_OPS_POINT * fc["points"]
-                + SOLVER_OPS_JOINT * n_live_j))
+        f_bytes, f_ops = fused_cost(f_cfg, f_in, out, fc, n_live_j)
         k_ms = kernel_ms(lambda: fused_cuda.fused_step(f_cfg, *f_args,
                                                        *scene_["jargs"]))
         pl_ms = timed(lambda: fused_cuda.fused_step_plain(
             f_cfg, *f_args, *scene_["jargs"]), PLAIN_PHYSICS_ITERS, 1)
         return k_ms, pl_ms, f_bytes, f_ops
 
-    fu_ms, fu_plain_ms, fu_bytes, fu_ops = fused_cost(scene)
-    hs_fu = fused_cost(hs_scene)
+    fu_ms, fu_plain_ms, fu_bytes, fu_ops = fused_row(scene)
+    work["fused_step"] = (fu_bytes, fu_ops)
+    hs_fu = fused_row(hs_scene)
     for tier, sp_scene in scene["spheres"].items():
-        k_ms, pl_ms, b, ops = fused_cost(sp_scene)
+        k_ms, pl_ms, b, ops = fused_row(sp_scene)
+        work[f"fused_step {tier} spheres"] = (b, ops)
         b_ms, b_by = bound(b, ops)
         print(f"fused_step {tier} at the sphere scene (W={W}, N=21, caps "
               f"8/8/8): wrapper {k_ms[0]:.4f} ms/launch, device "
@@ -4186,9 +4589,10 @@ def main() -> int:
     for name, (r_planes, r_opts, n_rays) in (("raycast", ray_scene),
                                              ("raycast_blas", blas_ray_scene)):
         r_out = raycast_cuda.raytrace(*r_planes, **r_opts)
-        r_bytes = nbytes(*r_planes, r_out)
-        r_ops, live_rows, shadow_pairs, hit_rays = ray_ops(
-            r_planes, r_opts, n_rays, r_out)
+        r_bytes, r_ops = work[name] = raycast_cost(r_planes, r_opts, n_rays,
+                                                     r_out)
+        live_rows, shadow_pairs, hit_rays = ray_counts(r_planes, r_opts,
+                                                       n_rays, r_out)
         wv, t_pad = r_planes[0].shape[:2]
         print(f"{name}: {live_rows} of {wv * t_pad} rows live, {hit_rays} "
               f"of {wv * n_rays} rays hit, {shadow_pairs} (hit ray, "
@@ -4196,11 +4600,8 @@ def main() -> int:
         if name == "raycast":
             # every (view, padded ray, row): the yardstick of the kernel
             # before it skipped dead rows, the same work before and after
-            per_ray = RAY_OPS_RAY + (RAY_OPS_RAY_MATERIALS
-                                     if r_opts["use_materials"] else 0)
-            shadow = RAY_OPS_PAIR_SHADOW if r_opts["shadows"] else 0
-            all_ops = r_out.shape[2] * wv * (
-                t_pad * (RAY_OPS_PAIR + shadow) + per_ray)
+            _, all_ops = work["raycast every-row yardstick"] = \
+                raycast_every_row_cost(r_planes, r_opts, r_out)
             all_ms, all_by = bound(r_bytes, all_ops)
             print(f"raycast: bound over every row (the same-work yardstick "
                   f"of the kernel that tested them all) {all_ms:.5f} ms "
@@ -4233,6 +4634,7 @@ def main() -> int:
             solver_cuda.substep_solver(hcfg.cfg, *h_in)),
         "fused_step": hs_fu[2:],
     }
+    work.update({f"{k} hide_seek": v for k, v in hs_cost.items()})
     hs_ms = {
         "broadphase": (
             kernel_ms(lambda: broadphase_cuda.broadphase(h_pack, hcfg.caps,
@@ -4442,6 +4844,40 @@ def main() -> int:
         if row["name"] == "raycast_blas":
             row["max_abs_err"] = max(row["max_abs_err"], asset_err)
 
+    lap("34")
+    # ---- 34: node tracing and the debug checks on Escape Room
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    check_tracing_debug(make_sim, EscapeRoom, kernels, acts, card)
+    print(f"phase 34: {time.perf_counter() - t0:.1f} s ({card})")
+
+    lap("35")
+    # ---- 35: every bound from utils/roofline.py; bench_roofline
+    check_roofline(work, {"escape_room": sps, "hide_seek_pixels": hs_sps},
+                   HideSeek, card)
+
+    lap("36")
+    # ---- 36: the navmesh's batched queries
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    check_navmesh(card)
+    print(f"phase 36: {time.perf_counter() - t0:.1f} s ({card})")
+
+    lap("37")
+    # ---- 37: worlds sharded (parallel/), distributed PPO over NCCL
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    check_sharded_steps(make_sim, EscapeRoom, kernels, acts, card)
+    check_distributed_ppo(torch_train_ppo_distributed, all_k, card)
+    print(f"phase 37: {time.perf_counter() - t0:.1f} s ({card})")
+
+    lap("38")
+    # ---- 38: the viewer, the recorder and the playback viewer
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    check_viz(torch_viewer_demo, kernels, card)
+    print(f"phase 38: {time.perf_counter() - t0:.1f} s ({card})")
+
     lap("end")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
@@ -4449,15 +4885,6 @@ def main() -> int:
         "count": torch.cuda.device_count(),
     }}))
     return 0
-
-
-def bound(b, ops):
-    """(least ms the card could take, "bytes" or "operations"): the
-    larger of the bytes over the memory rate and the operations over the
-    float32 rate."""
-    t_bytes, t_ops = b / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
 
 
 if __name__ == "__main__":

@@ -105,14 +105,27 @@ def gae(rew, done, val, last_val, cfg: PPOConfig):
     return torch.stack(out[::-1])
 
 
-def ppo_loss(pi, v, batch, cfg: PPOConfig):
+def normalize_adv(adv, allreduce_mean=None):
+    """Advantages less their mean, over their population std. With
+    ``allreduce_mean`` (a list of tensors -> their means over the
+    learner's ranks, each rank holding an equal shard) the mean and std
+    are those of the whole batch."""
+    if allreduce_mean is None:
+        return (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    mean = allreduce_mean([adv.mean()])[0]
+    var = allreduce_mean([((adv - mean) ** 2).mean()])[0]
+    return (adv - mean) / (torch.sqrt(var) + 1e-8)
+
+
+def ppo_loss(pi, v, batch, cfg: PPOConfig, allreduce_mean=None):
     """The clipped PPO objective with the value and entropy terms, the
-    advantages normalised by their mean and population std."""
+    advantages normalised by their mean and population std (over all
+    ranks' shards with ``allreduce_mean``; the loss itself is the mean
+    over this rank's shard)."""
     logp_all = torch.log_softmax(pi(batch["obs"]), dim=-1)
     logp = torch.gather(logp_all, -1, batch["act"][..., None])[..., 0]
     ratio = torch.exp(logp - batch["logp"])
-    adv = batch["adv"]
-    adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    adv = normalize_adv(batch["adv"], allreduce_mean)
     pg = -torch.minimum(
         ratio * adv, torch.clamp(ratio, 1 - cfg.clip, 1 + cfg.clip) * adv,
     ).mean()
@@ -121,10 +134,23 @@ def ppo_loss(pi, v, batch, cfg: PPOConfig):
     return pg + cfg.vf_coef * v_loss - cfg.ent_coef * ent
 
 
-def adam_epochs(pi, v, batch, cfg: PPOConfig):
+def loss_grads(pi, v, batch, cfg: PPOConfig, allreduce_mean=None):
+    """(loss, gradients of ``ppo_loss`` for pi's then v's parameters).
+    With ``allreduce_mean`` the gradients are averaged over the ranks:
+    for equal shards, the whole batch's gradient."""
+    params = list(pi.parameters()) + list(v.parameters())
+    loss = ppo_loss(pi, v, batch, cfg, allreduce_mean)
+    grads = torch.autograd.grad(loss, params)
+    if allreduce_mean is not None:
+        grads = allreduce_mean(list(grads))
+    return loss, grads
+
+
+def adam_epochs(pi, v, batch, cfg: PPOConfig, allreduce_mean=None):
     """``cfg.epochs`` full-batch Adam steps on ``ppo_loss``, the moments
     starting at zero; the parameters are updated in place. Returns the
-    loss of each epoch (tensors)."""
+    loss of each epoch (tensors). ``allreduce_mean``: see
+    :func:`loss_grads`."""
     params = list(pi.parameters()) + list(v.parameters())
     m = [torch.zeros_like(p) for p in params]
     s = [torch.zeros_like(p) for p in params]
@@ -132,8 +158,7 @@ def adam_epochs(pi, v, batch, cfg: PPOConfig):
     b2 = torch.tensor(0.999, dtype=torch.float32)
     losses = []
     for t in range(cfg.epochs):
-        loss = ppo_loss(pi, v, batch, cfg)
-        grads = torch.autograd.grad(loss, params)
+        loss, grads = loss_grads(pi, v, batch, cfg, allreduce_mean)
         # bias corrections in float32, as the JAX example's (t + 1.0)
         c1 = float(1 - b1 ** (t + 1.0))
         c2 = float(1 - b2 ** (t + 1.0))
@@ -147,14 +172,15 @@ def adam_epochs(pi, v, batch, cfg: PPOConfig):
 
 
 def update(step_fn, state, pi, v, generator, cfg: PPOConfig, obs_of,
-           keep=()):
+           keep=(), allreduce_mean=None):
     """One PPO update: ``cfg.horizon`` steps of ``step_fn`` from
     ``state`` with actions drawn from ``pi``, the advantages, then
-    ``adam_epochs``. ``obs_of(state)`` gives the observations [W, ...,
-    D]; the reward and done of a world are shared by its agents. Returns
-    (state, frames): frames holds [T, ...] tensors of the rollout (obs,
-    act, logp, rew, done, val, the world's ``ep_done`` and the exports
-    named in ``keep``) and ``losses``."""
+    ``adam_epochs`` (``allreduce_mean``: see :func:`loss_grads`).
+    ``obs_of(state)`` gives the observations [W, ..., D]; the reward and
+    done of a world are shared by its agents. Returns (state, frames):
+    frames holds [T, ...] tensors of the rollout (obs, act, logp, rew,
+    done, val, the world's ``ep_done`` and the exports named in
+    ``keep``) and ``losses``."""
     frames = {k: [] for k in ("obs", "act", "logp", "rew", "done", "val",
                               "ep_done") + tuple(keep)}
     with torch.no_grad():
@@ -186,7 +212,7 @@ def update(step_fn, state, pi, v, generator, cfg: PPOConfig, obs_of,
                   v(obs_of(state))[..., 0], cfg)
     batch = dict(obs=frames["obs"], act=frames["act"], logp=frames["logp"],
                  adv=adv, ret=adv + frames["val"])
-    frames["losses"] = adam_epochs(pi, v, batch, cfg)
+    frames["losses"] = adam_epochs(pi, v, batch, cfg, allreduce_mean)
     return state, frames
 
 

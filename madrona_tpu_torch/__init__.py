@@ -23,8 +23,59 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+from .core.component import (  # noqa: E402
+    ArchetypeSpec,
+    ComponentSpec,
+    Entity,
+    NULL_ENTITY,
+    entity_ref,
+    f32,
+    i32,
+    u32,
+    quat,
+    scalar,
+    vec2,
+    vec3,
+    vec4,
+)
+from .core.state import SimState, StateManager  # noqa: E402
+from .core.registry import ECSRegistry  # noqa: E402
+from .graph.builder import (  # noqa: E402
+    Ctx, TaskGraph, TaskGraphBuilder, TaskGraphID,
+)
+from .graph.executor import Executor  # noqa: E402
 from .models.base import (  # noqa: E402
     EnvBase, Sim, make_sim, rollout, rollout_flat,
 )
+from .utils import math3d, rng  # noqa: E402
 
-__all__ = ["EnvBase", "Sim", "make_sim", "rollout", "rollout_flat"]
+__all__ = [
+    "ArchetypeSpec",
+    "ComponentSpec",
+    "ECSRegistry",
+    "Entity",
+    "EnvBase",
+    "Executor",
+    "Ctx",
+    "NULL_ENTITY",
+    "Sim",
+    "SimState",
+    "StateManager",
+    "TaskGraph",
+    "TaskGraphBuilder",
+    "TaskGraphID",
+    "entity_ref",
+    "f32",
+    "i32",
+    "u32",
+    "make_sim",
+    "math3d",
+    "quat",
+    "rng",
+    "rollout",
+    "rollout_flat",
+    "scalar",
+    "vec2",
+    "vec3",
+    "vec4",
+]

@@ -14,8 +14,53 @@ from typing import Any, Mapping, Sequence
 
 import torch
 
+__all__ = [
+    "ComponentSpec",
+    "ArchetypeSpec",
+    "Entity",
+    "NULL_ENTITY",
+    "f32",
+    "i32",
+    "u32",
+    "scalar",
+    "vec2",
+    "vec3",
+    "vec4",
+    "quat",
+    "entity_ref",
+]
+
 f32 = torch.float32
 i32 = torch.int32
+# a 32-bit unsigned word. A spec of dtype u32 stores its tensors as
+# utils/rng.py holds Threefry words, int64 with values in [0, 2**32)
+# (torch's uint32 lacks most arithmetic); interop carries the leaves of
+# such specs, and only those, to and from numpy uint32
+u32 = torch.uint32
+
+# every registered int64 leaf, "Name" or "Name.field": True where its
+# spec says u32. A name keeps one meaning, so that interop can tell a
+# word from an int64 by the leaf's name
+INT64_LEAVES: dict = {}
+
+
+def storage_dtype(dtype):
+    """The dtype a spec's tensors are stored in: int64 for u32."""
+    return torch.int64 if dtype == u32 else dtype
+
+
+def note_int64_leaves(spec: "ComponentSpec"):
+    """Record the int64 and u32 leaves of ``spec`` in
+    :data:`INT64_LEAVES`; raise where a name would change meaning."""
+    leaves = ({f"{spec.name}.{f}": d for f, (_, d) in spec.fields.items()}
+              if spec.is_struct else {spec.name: spec.dtype})
+    for name, dtype in leaves.items():
+        if storage_dtype(dtype) != torch.int64:
+            continue
+        word = dtype == u32
+        if INT64_LEAVES.setdefault(name, word) != word:
+            raise ValueError(f"{name!r} is registered both as u32 and as "
+                             "int64")
 
 
 def scalar(dtype=f32):
@@ -92,12 +137,12 @@ class ComponentSpec:
         lead = tuple(lead_shape)
         if self.is_struct:
             return {
-                fname: torch.zeros(lead + tuple(fshape), dtype=fdtype,
-                                   device=device)
+                fname: torch.zeros(lead + tuple(fshape),
+                                   dtype=storage_dtype(fdtype), device=device)
                 for fname, (fshape, fdtype) in self.fields.items()
             }
-        return torch.zeros(lead + tuple(self.shape), dtype=self.dtype,
-                           device=device)
+        return torch.zeros(lead + tuple(self.shape),
+                           dtype=storage_dtype(self.dtype), device=device)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -19,7 +19,7 @@ import torch
 from . import archetype as _arch
 from .device import resolve_device
 from . import entity_store as _estore
-from .component import ArchetypeSpec, ComponentSpec
+from .component import ArchetypeSpec, ComponentSpec, note_int64_leaves
 from ..ops import scatter as _scatter
 from ..utils import rng as _rng
 
@@ -67,6 +67,7 @@ class StateManager:
         self._check_open()
         if spec.name in self.components:
             raise ValueError(f"component {spec.name!r} already registered")
+        note_int64_leaves(spec)
         self.components[spec.name] = spec
         return spec
 
@@ -124,6 +125,7 @@ class StateManager:
         self._check_open()
         if spec.name in self.singletons:
             raise ValueError(f"singleton {spec.name!r} already registered")
+        note_int64_leaves(spec)
         self.singletons[spec.name] = spec
         return spec
 

@@ -38,7 +38,9 @@ from torch.func import vmap
 from ..core import archetype as _arch
 from ..core import entity_store as _estore
 from ..core.state import SimState, StateManager
+from ..utils import debug as _debug
 from ..utils import rng as _rng
+from ..utils import tracing as _tracing
 
 
 @dataclasses.dataclass
@@ -318,9 +320,20 @@ class TaskGraph:
         self.nodes = nodes
 
     def step(self, state: SimState) -> SimState:
-        """Apply every node once and advance the step counter."""
+        """Apply every node once and advance the step counter. Each node
+        runs inside ``node_scope("<graph>.<node>")``, so a profile names
+        it (as the JAX package's named scopes do); under
+        ``utils.debug.checked`` each node's output state is checked
+        too."""
         step_key = _rng.split_i(state.rng, state.step.to(torch.int64))
+        check = _debug.NODE_CHECK.get()
         for node_id, node in enumerate(self.nodes):
             node_key = _rng.split_i(step_key, node_id)
-            state = node.fn(self.sm, state, node_key)
+            name = f"{self.name}.{node.name}"
+            with _tracing.node_scope(name):
+                if check is None:
+                    state = node.fn(self.sm, state, node_key)
+                else:
+                    state = check.run_node(name, node.fn, self.sm, state,
+                                           node_key)
         return dataclasses.replace(state, step=state.step + 1)

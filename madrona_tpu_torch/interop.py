@@ -10,7 +10,11 @@ from the same state at any step.
 
 Threefry words: the port stores ``rng`` as int64 holding 32-bit values
 (torch's uint32 lacks the needed arithmetic); the conversion maps
-uint32 <-> int64 exactly. Every other array keeps its dtype.
+uint32 <-> int64 exactly. The same holds for the columns and
+singletons of a u32 spec (``core.component.u32``, stored as int64):
+uint32 comes in as int64, and such a leaf goes out as uint32 (it must
+hold words in [0, 2**32)); the spec's name says which leaves these are
+(``core.component.INT64_LEAVES``). Every other array keeps its dtype.
 
 The render tables cross the same way: :func:`blas_from_numpy`,
 :func:`blas4_from_numpy`, :func:`materials_from_numpy` and
@@ -32,6 +36,7 @@ import numpy as np
 import torch
 
 from .core.archetype import Table
+from .core.component import INT64_LEAVES
 from .core.entity_store import EntityStore
 from .core.state import SimState
 
@@ -39,13 +44,32 @@ from .core.state import SimState
 def _to_torch(x, device):
     if isinstance(x, dict):
         return {k: _to_torch(v, device) for k, v in x.items()}
-    return torch.from_numpy(np.array(x, copy=True)).to(device)
+    a = np.array(x, copy=True)
+    if a.dtype == np.uint32:
+        a = a.astype(np.int64)
+    return torch.from_numpy(a).to(device)
 
 
-def _to_numpy(x):
+def _to_numpy(x, name=None):
+    """numpy of a tensor or a dict of them. ``name`` is the component or
+    singleton a leaf holds ("Name", a struct's field "Name.field"); the
+    leaves of a u32 spec leave as uint32, every other leaf keeps its
+    dtype."""
     if isinstance(x, dict):
-        return {k: _to_numpy(v) for k, v in x.items()}
-    return x.detach().cpu().numpy()
+        return {k: _to_numpy(v, None if name is None else f"{name}.{k}")
+                for k, v in x.items()}
+    a = x.detach().cpu().numpy()
+    if INT64_LEAVES.get(name, False):
+        if a.size and (a.min() < 0 or a.max() > 0xFFFFFFFF):
+            raise ValueError(f"u32 leaf {name!r} holds values outside "
+                             "[0, 2**32)")
+        a = a.astype(np.uint32)
+    return a
+
+
+def _named_to_numpy(tree):
+    """:func:`_to_numpy` of {component or singleton name: leaf}."""
+    return {k: _to_numpy(v, k) for k, v in tree.items()}
 
 
 def state_from_numpy(tree, device) -> SimState:
@@ -74,9 +98,11 @@ def state_to_numpy(state: SimState):
     """The numpy tree of a SimState (inverse of state_from_numpy)."""
     return {
         "tables": {
-            name: _to_numpy(_fields(t)) for name, t in state.tables.items()
+            name: {f: _named_to_numpy(v) if f == "columns" else _to_numpy(v)
+                   for f, v in _fields(t).items()}
+            for name, t in state.tables.items()
         },
-        "singletons": _to_numpy(state.singletons),
+        "singletons": _named_to_numpy(state.singletons),
         "entities": _to_numpy(_fields(state.entities)),
         "rng": state.rng.cpu().numpy().astype(np.uint32),
         "step": np.asarray(int(state.step), np.int32),

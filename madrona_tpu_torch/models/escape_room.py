@@ -119,6 +119,7 @@ def _make_objects():
 
 class EscapeRoom(EnvBase):
     name = "escape_room"
+    n_total = N_BODIES       # body rows a world (utils/roofline.py)
     num_agents = N_AGENTS
     action_is_discrete = True
     # per-agent action: (move_amount 0-3, move_angle 0-7, rotate 0-4, grab 0-1)

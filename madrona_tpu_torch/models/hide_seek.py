@@ -188,6 +188,7 @@ def _make_materials(tex_size: int = 32, device=None):
 
 class HideSeek(EnvBase):
     name = "hide_seek"
+    n_total = N_BODIES       # body rows a world (utils/roofline.py)
     num_agents = N_AGENTS
     action_is_discrete = True
     action_shape = (N_AGENTS, 5)

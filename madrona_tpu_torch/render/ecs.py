@@ -81,6 +81,7 @@ class RenderingSystem:
         self.body_arch = body_arch
         self.camera_rows = tuple(camera_rows)
         render_obj = torch.as_tensor(render_obj_of_body, dtype=torch.int32)
+        self.render_obj = render_obj
         n = render_obj.shape[0]
         body_mask = (torch.ones(n, dtype=torch.bool) if body_mask is None
                      else torch.as_tensor(body_mask, dtype=torch.bool))
@@ -91,6 +92,7 @@ class RenderingSystem:
             own = (torch.arange(n)[None, :]
                    == torch.tensor(self.camera_rows)[:, None])
             view_mask = view_mask & ~own
+        self.view_mask = view_mask
         self._host = dict(
             mesh=mesh, blas=blas, materials=materials, lights=lights,
             render_obj=render_obj, view_mask=view_mask,

@@ -89,8 +89,12 @@ def camera_rays(cfg: RenderConfig, cam_pos, cam_rot):
     h, w = cfg.height, cfg.width
     dev = cam_pos.device
     half = math.tan(math.radians(cfg.fov_deg) * 0.5)
-    xs = (torch.arange(w, device=dev) + 0.5) / w * 2.0 - 1.0
-    zs = 1.0 - (torch.arange(h, device=dev) + 0.5) / h * 2.0
+    # divided by tensors on the device: the card turns a division by a
+    # Python number into a product with its reciprocal, the CPU does not,
+    # and the pixel grid would part by an ulp
+    wt, ht = (torch.tensor(float(n), device=dev) for n in (w, h))
+    xs = (torch.arange(w, device=dev) + 0.5) / wt * 2.0 - 1.0
+    zs = 1.0 - (torch.arange(h, device=dev) + 0.5) / ht * 2.0
     px = xs[None, :].expand(h, w) * half * (w / h)
     pz = zs[:, None].expand(h, w) * half
     d_local = torch.stack([px, torch.ones_like(px), pz], dim=-1)

@@ -46,6 +46,7 @@ from madrona_tpu_torch.models.hide_seek import HideSeek     # noqa: E402
 from madrona_tpu_torch.models.overcooked import Overcooked  # noqa: E402
 from madrona_tpu_torch.models.pile import Pile              # noqa: E402
 from madrona_tpu_torch.utils import rng as _rng             # noqa: E402
+from madrona_tpu_torch.utils import tracing                 # noqa: E402
 
 PROFILED_STEPS = 5
 # name -> (env factory, default world count)
@@ -113,17 +114,14 @@ def main() -> int:
     print(f"key splitting alone: {split_ms:.3f} ms/step "
           f"({len(n_nodes) + sum(n_nodes)} Threefry splits)")
 
-    from torch.profiler import ProfilerActivity, profile
+    def run():
+        nonlocal step
+        sim.step({"action": acts[step], "reset": reset})
+        step += 1
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(PROFILED_STEPS):
-            sim.step({"action": acts[step], "reset": reset})
-            step += 1
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
+    t0 = time.perf_counter()
+    events = tracing.profile_events(run, PROFILED_STEPS)
+    wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in events if e.device_type.name == "CUDA"]
     dev_us = sum(e.self_device_time_total for e in kernels)
     launches = sum(e.count for e in kernels)

@@ -6,7 +6,10 @@ madrona_tpu_torch, chip_smoke.py, the port's scripts
 JAX: no module of theirs may import jax or anything of the JAX package
 (madrona_tpu), not even a numpy-only module; nor triton, which no kernel
 of the port uses and the CPU machines lack. Checked by parsing every
-source file, and by importing the package in a fresh interpreter."""
+source file, and by importing the package, its shell (tracing, debug,
+roofline, navmesh, viz, parallel) and the distributed and viewer
+examples in a fresh interpreter, which must not have loaded the JAX
+package's prebuilt libmadrona_native.so either."""
 
 import ast
 import pathlib
@@ -62,11 +65,45 @@ def test_package_import_leaves_jax_out():
         "madrona_tpu_torch.ops.lifecycle, madrona_tpu_torch.graph.executor, "
         "madrona_tpu_torch.physics.broadphase, "
         "madrona_tpu_torch.models.hanabi, "
-        "madrona_tpu_torch.models.overcooked; "
+        "madrona_tpu_torch.models.overcooked, "
+        "madrona_tpu_torch.utils.tracing, madrona_tpu_torch.utils.debug, "
+        "madrona_tpu_torch.utils.roofline, "
+        "madrona_tpu_torch.utils.navmesh, madrona_tpu_torch.utils.tree, "
+        "madrona_tpu_torch.viz, "
+        "madrona_tpu_torch.viz.web_viewer, madrona_tpu_torch.viz.playback, "
+        "madrona_tpu_torch.parallel, "
+        "madrona_tpu_torch.parallel.distributed; "
+        "sys.path.insert(0, 'examples'); "
+        "import torch_train_ppo_distributed, torch_viewer_demo; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]; "
+        "import os; maps = '/proc/self/maps'; "
+        "bad += ['libmadrona_native.so'] if os.path.exists(maps) and "
+        "'libmadrona_native' in open(maps).read() else []; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_new_modules_are_parsed():
+    """The shell's modules and examples are among the parsed sources."""
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    assert {
+        "madrona_tpu_torch/utils/tracing.py",
+        "madrona_tpu_torch/utils/debug.py",
+        "madrona_tpu_torch/utils/roofline.py",
+        "madrona_tpu_torch/utils/navmesh.py",
+        "madrona_tpu_torch/utils/tree.py",
+        "madrona_tpu_torch/viz/viewer.py",
+        "madrona_tpu_torch/viz/recorder.py",
+        "madrona_tpu_torch/viz/web_viewer.py",
+        "madrona_tpu_torch/viz/playback.py",
+        "madrona_tpu_torch/viz/__init__.py",
+        "madrona_tpu_torch/parallel/mesh.py",
+        "madrona_tpu_torch/parallel/distributed.py",
+        "madrona_tpu_torch/parallel/__init__.py",
+        "examples/torch_train_ppo_distributed.py",
+        "examples/torch_viewer_demo.py",
+    } <= names
