@@ -210,8 +210,9 @@ Phases, each printing its own lines:
      Gauss-Seidel and TGS tests' scene) at solver="gauss_seidel", 1024
      worlds x 30 steps: B1 once a step, no other kernel; positions
      finite; ms, device events and busy share a step; 8 worlds after
-     steps 10, 16 and 20 carried to the CPU, one step within the golden
-     bounds (phase 20's rule);
+     steps 10, 16, 20 and 29 carried to the CPU, one step within the
+     golden bounds (phase 20's rule), the largest differences in
+     position, rotation, velocity and omega printed for each;
  30. physics/query.py and physics/gjk.py on the main path's Escape Room
      state (4096 worlds): raycast_bodies for 2 agents x 30 rays (each
      agent's own row excluded), card against CPU over every world (hit
@@ -232,7 +233,10 @@ Phases, each printing its own lines:
      gather walker, the wide walkers' hits equal (t within 1e-4
      relative, the triangle equal but at ties); on the plain BLAS tier
      (the kernel tier off), ray_chunk 256 and the one-hot walker give the
-     default's planes bit for bit and launch no kernel;
+     default's planes bit for bit and launch no kernel; B5's device,
+     wrapper and plain ms on the imported scene beside its render floor
+     on the scene's live rows (utils/roofline.render_floor_s) and its
+     bound on the run's data;
  32. examples/torch_train_ppo_pixels.py at its defaults (256 worlds, 16 x
      16 RGBD, horizon 16, two epochs): 5 updates on the dense tier
      (tlas_max_instances=8) and 2 on the BLAS tier; B1, B2, B3 and B5
@@ -287,6 +291,20 @@ Phases, each printing its own lines:
      of pixels); the top-down PNG decoded by assets/png.decode_png; the
      Recorder over 20 steps saved and loaded equal; PlaybackViewer's
      /meta, /frame.png and /topdown.png over 127.0.0.1.
+ 39. Executor.build_launch_graph: Hide & Seek with pixels at 1024 worlds,
+     run(build_launch_graph(["step", "render"])) for 5 steps against
+     sim.step() of a fresh sim from the same seed and actions: every
+     export and the state equal bit for bit, B1, B2, B3 and B5 once a
+     step and no other kernel; Escape Room at 4096 worlds:
+     get_exported(slot) equal to run's export of every slot;
+ 40. scripts/torch_weak_scaling.py --env escape_room at 4096 worlds a
+     rank, 30 steps, as one rank over NCCL: its JSON printed, the rate
+     finite and positive, B1-B4 once a step; one card gives no
+     efficiency;
+ 41. scripts/torch_step_profile.py --phases on Escape Room at 4096
+     worlds: the step, each physics phase alone on the plain route
+     (broadphase, narrowphase, integrate, the position and velocity
+     solves) and B1-B3 alone, printed.
 
 Any failure raises (non-zero exit). The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -393,7 +411,9 @@ TGS_STEPS = 60
 TGS_CHECK_AT = (50,)
 GS_W = 1024               # the box stack at solver="gauss_seidel"
 GS_STEPS = 30
-GS_CHECK_AT = (10, 16, 20)  # 16 parted by 0.084 before math3d.sum_in_order
+# 16 parted by 0.084 before math3d.sum_in_order; 29 by 0.028 in velocity
+# before the physics path divided by device tensors and took math3d.norm
+GS_CHECK_AT = (10, 16, 20, 29)
 CHECK_WORLDS = (0, 1, 2, 3, 4, 5, 6, 7)
 MAX_WITNESSED = 2         # checks of a phase that may need a witness
 QUERY_RAYS = 30           # rays an agent for raycast_bodies
@@ -2886,8 +2906,14 @@ def check_gauss_seidel(kernels, card):
     witnessed, worst = [], {k: 0.0 for k in GOLDEN}
     for t, st in saved.items():
         c_next = card_fn(world_slice(st, worlds, DEV), {})[0]
+        at = {k: 0.0 for k in GOLDEN}
         body_vs_cpu("gauss_seidel", t, c_next, cpu_fn,
-                    world_slice(st, worlds, "cpu"), {}, worst, witnessed)
+                    world_slice(st, worlds, "cpu"), {}, at, witnessed)
+        print(f"gauss_seidel card vs CPU path, one step from the card's "
+              f"state after step {t}: largest differences position "
+              f"{at['Position']!r}, rotation {at['Rotation']!r}, velocity "
+              f"{at['linear']!r}, omega {at['angular']!r}")
+        worst = {k: max(v, at[k]) for k, v in worst.items()}
     if len(witnessed) > MAX_WITNESSED:
         raise AssertionError(f"gauss_seidel card vs CPU: {witnessed}")
     print(f"gauss_seidel card vs CPU path: worlds {worlds}, one step from "
@@ -3409,7 +3435,20 @@ def check_assets(kernels, card):
           f"{ASSET_CHUNK} and the onehot walker give the default's planes "
           "bit for bit; no kernel launched")
     ms = timed_device(lambda: rck.raytrace(*planes, **opts), 20, 2)
-    print(f"raycast on the imported scene: device {ms:.4f} ms ({card})")
+    wrap_ms = timed(lambda: rck.raytrace(*planes, **opts), 20, 2)
+    plain_ms = timed(lambda: rck.raytrace_plain(*planes, **opts), 1, 1)
+    # its bounds: the render floor on the scene's live rows (the static
+    # count, no hit-dependent work), and the run's own data
+    from madrona_tpu_torch.utils.roofline import render_floor_s
+
+    live_rows = ray_counts(planes, opts, n_rays, out)[0]
+    floor_ms = render_floor_s(1, planes[0].shape[0], n_rays, live_rows) * 1e3
+    b_ms, b_by = bound(*raycast_cost(planes, opts, n_rays, out))
+    print(f"raycast on the imported scene: device {ms:.4f} ms, wrapper "
+          f"{wrap_ms:.4f} ms, plain {plain_ms:.4f} ms; render "
+          f"floor on its {live_rows} live rows {floor_ms:.5f} ms "
+          f"(utils/roofline.render_floor_s), bound on this run's data "
+          f"{b_ms:.5f} ms ({b_by}) ({card})")
     return launches, (planes, opts, n_rays), worst
 
 
@@ -4178,6 +4217,128 @@ def check_viz(torch_viewer_demo, kernels, card):
           f"({card})")
 
 
+LG_STEPS = 5              # steps of the composed launch against sim.step
+ER_EXPORT_STEPS = 3       # Escape Room steps whose exports get_exported reads
+WS_STEPS = 30             # scripts/torch_weak_scaling.py's default steps
+PHASE_REPS = 20           # calls a run of torch_step_profile's phase times
+
+
+def check_launch_graph(make_sim, HideSeek, EscapeRoom, all_k, b_kernels,
+                       acts, card):
+    """Phase 39: Executor.build_launch_graph(["step", "render"]) of Hide &
+    Seek with pixels (HS_W worlds) run LG_STEPS steps against sim.step()
+    of a fresh sim from the same seed and actions: every export and the
+    final state equal bit for bit, b_kernels (B1, B2, B3, B5) launched
+    once a step and no other kernel; then Escape Room at W worlds:
+    get_exported(slot) equal to run's export of every slot, at each of
+    ER_EXPORT_STEPS steps."""
+    import torch
+
+    what = f"hide_seek pixels {HS_W} worlds"
+    hs_acts = HideSeek.random_actions(np.random.RandomState(4), LG_STEPS,
+                                      HS_W).to(DEV)
+    reset = torch.zeros((HS_W,), dtype=torch.int32, device=DEV)
+    composed = make_sim(HideSeek(render_size=HS_RENDER), num_worlds=HS_W,
+                        seed=0, device=DEV)
+    stepped = make_sim(HideSeek(render_size=HS_RENDER), num_worlds=HS_W,
+                       seed=0, device=DEV)
+    ex = composed.executor
+    key = ex.build_launch_graph(["step", "render"])
+    fn = ex.step_fn(key)
+    if key != ("step", "render") or ex.step_fn(("step", "render")) is not fn:
+        raise AssertionError(f"build_launch_graph: key {key}, the composed "
+                             "step not kept")
+    for k in all_k:
+        k.launches = 0
+    outs = [ex.run(key, {"action": hs_acts[t], "reset": reset})
+            for t in range(LG_STEPS)]
+    expect_launches(f"{what} build_launch_graph", all_k,
+                    [k.launches for k in all_k],
+                    want_of(all_k, {k: LG_STEPS for k in b_kernels}))
+    for t in range(LG_STEPS):
+        ref = stepped.step({"action": hs_acts[t], "reset": reset})
+        if set(ref) != set(outs[t]):
+            raise AssertionError(f"{what}: export slots differ")
+        for name, v in ref.items():
+            if not torch.equal(outs[t][name], v):
+                raise AssertionError(f"{what} step {t}: the composed "
+                                     f"launch's {name} differs from "
+                                     "sim.step()'s")
+    for (path, a), (_, b) in zip(tree_leaves(composed.state),
+                                 tree_leaves(stepped.state)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: {path} differs after "
+                                 f"{LG_STEPS} steps")
+    print(f"{what}: run(build_launch_graph(['step', 'render'])) equals "
+          f"sim.step() bit for bit over {LG_STEPS} steps (every export "
+          f"and the state), B1, B2, B3 and B5 once a step ({card})")
+    del composed, stepped, outs
+
+    sim = make_sim(EscapeRoom(), num_worlds=W, seed=0, device=DEV)
+    zeros = torch.zeros((W,), dtype=torch.int32, device=DEV)
+    for t in range(ER_EXPORT_STEPS):
+        out = sim.step({"action": acts[t], "reset": zeros})
+        for slot, v in out.items():
+            if not torch.equal(sim.executor.get_exported(slot), v):
+                raise AssertionError(f"escape_room step {t}: get_exported"
+                                     f"({slot!r}) differs from run's")
+    print(f"escape_room {W} worlds: get_exported equals run's export for "
+          f"each of the {len(out)} slots at each of {ER_EXPORT_STEPS} steps "
+          f"({', '.join(sorted(out))})")
+
+
+def check_weak_scaling(kernels, card):
+    """Phase 40: scripts/torch_weak_scaling.py --env escape_room at W
+    worlds a rank, WS_STEPS steps, as one rank (a group of one process
+    over NCCL on the card): its JSON printed, the rate finite and
+    positive, the main path's kernels launched once a step (and once in
+    the warm-up call). With one card there is no efficiency to read."""
+    import math
+
+    ws = load_script("torch_weak_scaling")
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = ws.main(["--env", "escape_room", "--worlds-per-device", str(W),
+                   "--steps", str(WS_STEPS)]
+                  + (["--cpu"] if DEV == "cpu" else []))
+    secs = time.perf_counter() - t0
+    expect_launches("torch_weak_scaling escape_room", kernels,
+                    [k.launches for k in kernels],
+                    [WS_STEPS + 1] * len(kernels))
+    rate = out["steps_per_sec"]["1"]
+    want = "gloo" if DEV == "cpu" else "nccl"
+    if out["devices"] != [1] or out["backend"] != want or \
+            not (math.isfinite(rate) and rate > 0) or out["efficiency"]:
+        raise AssertionError(f"torch_weak_scaling: {out}")
+    print(f"torch_weak_scaling: one rank over {out['backend']}, {W} worlds, "
+          f"{WS_STEPS} steps: {rate:.1f} env-steps/s, {secs:.1f} s in all; "
+          "efficiency: none (one card, no other count to compare with) "
+          f"({card})")
+
+
+def check_phases(make_sim, EscapeRoom, acts, card):
+    """Phase 41: scripts/torch_step_profile.py --phases on Escape Room at
+    W worlds (after 10 steps): the whole step, each physics phase alone
+    on the plain route and B1-B3 alone, PHASE_REPS calls a run, printed;
+    every time finite and positive."""
+    import math
+
+    import torch
+
+    tsp = load_script("torch_step_profile")
+    sim = make_sim(EscapeRoom(), num_worlds=W, seed=0, device=DEV)
+    inputs = {"action": acts[0],
+              "reset": torch.zeros((W,), dtype=torch.int32, device=DEV)}
+    for _ in range(10):
+        sim.step(inputs)
+    rows = tsp.phase_times(sim, inputs, torch.cuda.synchronize, PHASE_REPS)
+    tsp.print_phases("escape_room phases (torch_step_profile.py --phases)",
+                     W, rows, card)
+    if not all(math.isfinite(ms) and ms > 0 for _, ms in rows):
+        raise AssertionError(f"phase times {rows}")
+
+
 def main() -> int:
     import torch
 
@@ -4877,6 +5038,28 @@ def main() -> int:
     t0 = time.perf_counter()
     check_viz(torch_viewer_demo, kernels, card)
     print(f"phase 38: {time.perf_counter() - t0:.1f} s ({card})")
+
+    lap("39")
+    # ---- 39: the composed launch of Hide & Seek's two graphs against
+    # sim.step(); Escape Room's exports through get_exported
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    check_launch_graph(make_sim, HideSeek, EscapeRoom, all_k,
+                       [broadphase_cuda.KERNEL, contacts_cuda.KERNEL,
+                        solver_cuda.KERNEL, raycast_cuda.KERNEL], acts, card)
+    print(f"phase 39: {time.perf_counter() - t0:.1f} s ({card})")
+
+    lap("40")
+    # ---- 40: the weak-scaling script as one rank over NCCL
+    torch.cuda.empty_cache()
+    check_weak_scaling(kernels, card)
+
+    lap("41")
+    # ---- 41: the step and each physics phase alone
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    check_phases(make_sim, EscapeRoom, acts, card)
+    print(f"phase 41: {time.perf_counter() - t0:.1f} s ({card})")
 
     lap("end")
     print(json.dumps({"kernels": rows}))

@@ -2,7 +2,10 @@
 
 Port of ``madrona_tpu/graph/executor.py`` without ``jit`` or buffer
 donation: a step is an eager call that returns the new state and the
-exported tensors.
+exported tensors. :meth:`Executor.build_launch_graph` composes
+taskgraphs into one step function, built once per launch and kept
+under its key, which :meth:`Executor.run` and :meth:`Executor.step_fn`
+take.
 
 Capacity growth: an append that does not fit an archetype's capacity is
 dropped and counted into the table's ``overflow``. Between steps,
@@ -44,14 +47,12 @@ class Executor:
         if init_fn is not None:
             state = init_fn(sm, state)
         self.state = state
+        # launch key (a tuple of graph names) -> its composed step
+        self._launches: Dict[tuple, Callable] = {}
 
-    def step_fn(self, launch: Sequence[str] = ("step",)) -> Callable:
-        """Pure ``(state, inputs) -> (state, exports)`` over the named
-        graphs, applied in order."""
-        if isinstance(launch, str):
-            launch = (launch,)
+    def _compose(self, key: tuple) -> Callable:
         sm = self.sm
-        graphs = [self.graphs[n] for n in launch]
+        graphs = [self.graphs[n] for n in key]
 
         def step(state: SimState, inputs: Dict[str, Any]):
             state = sm.apply_imports(state, inputs)
@@ -61,10 +62,33 @@ class Executor:
 
         return step
 
+    def build_launch_graph(self, graph_names: Sequence[str]) -> tuple:
+        """Compose taskgraphs into one launch (the reference's
+        ``buildLaunchGraph``): the pure step over the named graphs, in
+        order, built once and kept. Returns its key for :meth:`run` and
+        :meth:`step_fn`."""
+        key = (graph_names,) if isinstance(graph_names, str) \
+            else tuple(graph_names)
+        if key not in self._launches:
+            self._launches[key] = self._compose(key)
+        return key
+
+    def step_fn(self, launch: Sequence[str] = ("step",)) -> Callable:
+        """Pure ``(state, inputs) -> (state, exports)`` over the named
+        graphs (a graph name, a tuple of names or a key of
+        :meth:`build_launch_graph`), applied in order; the same function
+        on every call."""
+        return self._launches[self.build_launch_graph(launch)]
+
     def run(self, launch=("step",), inputs: Optional[Dict[str, Any]] = None):
         """One step over all worlds; returns the exported tensors."""
         self.state, outputs = self.step_fn(launch)(self.state, inputs or {})
         return outputs
+
+    def get_exported(self, slot: str):
+        """The export ``slot`` of the current state (the reference's
+        ``getExported``)."""
+        return self.sm.collect_exports(self.state)[slot]
 
     # -- capacity growth ---------------------------------------------------
 

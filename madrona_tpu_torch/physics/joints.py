@@ -154,7 +154,7 @@ def _apply_angular_update(q1, q2, upd1, upd2):
 
 def _rotate_toward(q1, q2, delta_q, inv_i1, inv_i2):
     """Shared tail of the orientation and axis constraints."""
-    mag = torch.linalg.vector_norm(delta_q, dim=-1)
+    mag = m3.norm(delta_q)
     ok = mag > 0.0
     n = delta_q / torch.where(ok, mag, 1.0)[..., None]
     n1 = m3.quat_rotate(m3.quat_inv(q1), n)
@@ -216,7 +216,7 @@ def _joint_update(b1, b2, jtype, r1, r2, attach_q1, attach_q2,
     nq2 = torch.where(is_fixed, fq2, hq2)
     corr = torch.where(is_fixed, fixed_corr, hinge_corr)
 
-    mag = torch.linalg.vector_norm(corr, dim=-1)
+    mag = m3.norm(corr)
     has_c = mag > 0.0
     n_dir = corr / torch.where(has_c, mag, 1.0)[..., None]
     ux1, ux2, uq1, uq2, _ = _apply_positional_update(

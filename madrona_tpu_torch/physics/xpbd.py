@@ -307,7 +307,7 @@ def _local_contacts(b1, b2, avg_pt, depth, normal):
 
 def set_velocities(body: BodyState, h: float) -> BodyState:
     """setVelocities (xpbd.cpp:738-779): velocity from the substep delta."""
-    v = (body.pos - body.prev_x) / h
+    v = (body.pos - body.prev_x) / const_f32((h,), body.pos.device)
     delta_q = m3.quat_mul(body.rot, m3.quat_inv(body.prev_q))
     same = torch.all(body.rot == body.prev_q, dim=-1)
     new_omega = (2.0 / h) * delta_q[..., 1:4]
@@ -330,8 +330,12 @@ _PACK_SLOTS = (
     ("presolve_w", 3), ("v", 3), ("w", 3),
     ("inv_m", 1), ("inv_i", 3), ("mu_s", 1), ("mu_d", 1),
 )
+PACK_F = sum(d for _, d in _PACK_SLOTS)  # 39
+
+
 def pack_bodies(body: BodyState, om, params=None):
-    """[W, N, 39] solver view of the body state (_PACK_SLOTS order)."""
+    """[W, N, PACK_F] solver view of the body state (_PACK_SLOTS
+    order)."""
     params = params if params is not None else om.obj_params(body.obj_id)
     static = body.response == RESPONSE_STATIC
     inv_m = torch.where(static, 0.0, params["inv_m"])
@@ -511,7 +515,7 @@ def solve_velocities_jacobi(body: BodyState, contacts: Contacts, om,
     # dynamic friction per manifold point (vectorized over the 4 points)
     pen = pts[..., 3]                                     # [W, C, 4]
     live_pt = torch.arange(4, device=pts.device) < num[..., None]
-    pen_sum = torch.where(live_pt, pen, 0.0).sum(dim=-1)
+    pen_sum = m3.sum_in_order(torch.where(live_pt, pen, 0.0))
     has_pen = pen_sum > 0.0
 
     cp = pts[..., :3]                                     # [W, C, 4, 3]
@@ -556,16 +560,19 @@ def solve_velocities_jacobi(body: BodyState, contacts: Contacts, om,
     )
     # inv_scale appears twice on purpose: the reference deviates from
     # the XPBD paper here (xpbd.cpp:834-836)
-    dyn_mag = mu_d[..., None] * torch.abs(lam_pt) * inv_scale / h
+    dyn_mag = (mu_d[..., None] * torch.abs(lam_pt) * inv_scale
+               / const_f32((h,), inv_scale.device))
     corrected = -torch.minimum(dyn_mag, vt_len)
     f_imp = torch.where(
         ok[..., None] & live_pt & has_pen[..., None] & has_t,
         corrected * inv_scale, 0.0,
     )
-    fdv1 = (t_dir * (f_imp * b1e["inv_m"])[..., None]).sum(dim=-2)
-    fdv2 = -(t_dir * (f_imp * b2e["inv_m"])[..., None]).sum(dim=-2)
-    fdw1 = m3.quat_rotate(b1e["q"], f_imp[..., None] * fra1).sum(dim=-2)
-    fdw2 = -m3.quat_rotate(b2e["q"], f_imp[..., None] * fra2).sum(dim=-2)
+    fdv1 = m3.sum_in_order(t_dir * (f_imp * b1e["inv_m"])[..., None], -2)
+    fdv2 = -m3.sum_in_order(t_dir * (f_imp * b2e["inv_m"])[..., None], -2)
+    fdw1 = m3.sum_in_order(
+        m3.quat_rotate(b1e["q"], f_imp[..., None] * fra1), -2)
+    fdw2 = -m3.sum_in_order(
+        m3.quat_rotate(b2e["q"], f_imp[..., None] * fra2), -2)
 
     rows2 = torch.cat([ref, alt], dim=1)
     ok2 = torch.cat([ok, ok], dim=1)
@@ -688,6 +695,7 @@ def solve_velocities(body: BodyState, contacts: Contacts, om, h: float,
     nrm = contacts.normal
     num = contacts.num
     sign = _pair_sign(nrm.device)
+    h_t = const_f32((h,), nrm.device)
     q = b["q"]                                            # [2, W, C, 4]
     q_inv = m3.quat_inv(q)
     mu_d = 0.5 * (b["mu_d"][0] + b["mu_d"][1])
@@ -753,7 +761,7 @@ def solve_velocities(body: BodyState, contacts: Contacts, om, h: float,
             inv_scale = torch.where(
                 den_f > 0, 1.0 / torch.where(den_f > 0, den_f, 1.0), 0.0)
             # inv_scale twice on purpose (xpbd.cpp:834-836)
-            dyn_mag = mu_d[:, i] * lam_pt[:, i, p] * inv_scale / h
+            dyn_mag = mu_d[:, i] * lam_pt[:, i, p] * inv_scale / h_t
             f_imp = torch.where(
                 live_pt[:, i, p] & (vt_len > 1e-15),
                 -torch.minimum(dyn_mag, vt_len) * inv_scale, 0.0)

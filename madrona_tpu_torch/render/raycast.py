@@ -12,7 +12,8 @@ raycast kernel's budget to ``render/kernel.py`` (``ops/raycast_cuda``:
 the hand-written CUDA kernel on the card, its plain version on the
 CPU); larger scenes go to the dense tracer, either the elementwise
 Möller–Trumbore sweep (``tracer="mt"``) or its pinhole-factorised
-variant :func:`_trace_rays_matmul` (``tracer="matmul"``).
+variant :func:`_trace_rays_matmul` (``tracer="matmul"``), chosen by
+:func:`resolve_tracer` (``MADRONA_TPU_TRACER`` over ``cfg.tracer``).
 
 Outputs: float RGB in [0, 1] (lambert-shaded albedo) and linear depth;
 the background is the sky colour at depth ``t_max``.
@@ -23,6 +24,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import os
 
 import numpy as np
 import torch
@@ -61,6 +63,18 @@ class RenderConfig:
 
 
 TRACERS = ("mt", "matmul")
+
+
+def resolve_tracer(cfg: RenderConfig) -> str:
+    """The dense tracer of this render: ``cfg.tracer``, with the
+    ``MADRONA_TPU_TRACER`` environment variable taking precedence (read
+    at each render: the knob of a sweep). It chooses between the dense
+    tracers only: a scene the raycast kernel takes goes to the kernel
+    whatever it says. An unknown name raises ``ValueError``."""
+    tracer = os.environ.get("MADRONA_TPU_TRACER", cfg.tracer)
+    if tracer not in TRACERS:
+        raise ValueError(f"unknown tracer {tracer!r}")
+    return tracer
 
 
 def per_view(a, n_views: int):
@@ -296,8 +310,7 @@ def render_views(cfg: RenderConfig, mesh: MeshTables, inst_pos, inst_rot,
     its own body). Returns (rgb [W, V, H, Wpx, 3], depth [W, V, H, Wpx]).
     """
     n_views = cam_pos.shape[1]
-    if cfg.tracer not in TRACERS:
-        raise ValueError(f"unknown tracer {cfg.tracer!r}")
+    tracer = resolve_tracer(cfg)
     if inst_mask.dim() == 2:
         inst_mask = per_view(inst_mask, n_views)
 
@@ -313,27 +326,25 @@ def render_views(cfg: RenderConfig, mesh: MeshTables, inst_pos, inst_rot,
 
     # scenes past the kernel's triangle budget: the dense tracer, one
     # view at a time
-    outs = [trace_view(cfg, mesh, inst_pos, inst_rot, inst_scale, inst_obj,
-                       inst_mask[:, v], cam_pos[:, v], cam_rot[:, v])
+    outs = [trace_view(cfg, tracer, mesh, inst_pos, inst_rot, inst_scale,
+                       inst_obj, inst_mask[:, v], cam_pos[:, v], cam_rot[:, v])
             for v in range(n_views)]
     return (torch.stack([o[0] for o in outs], dim=1),
             torch.stack([o[1] for o in outs], dim=1))
 
 
-def trace_view(cfg: RenderConfig, mesh: MeshTables, inst_pos, inst_rot,
-               inst_scale, inst_obj, inst_mask, cam_pos, cam_rot):
-    """One view of every world through the dense tracer ``cfg.tracer``:
-    instances [W, I, ...], ``inst_mask`` [W, I], the camera [W, 3|4].
-    Returns (rgb [W, H, Wpx, 3], depth [W, H, Wpx])."""
+def trace_view(cfg: RenderConfig, tracer: str, mesh: MeshTables, inst_pos,
+               inst_rot, inst_scale, inst_obj, inst_mask, cam_pos, cam_rot):
+    """One view of every world through the dense tracer ``tracer`` (one
+    of :data:`TRACERS`): instances [W, I, ...], ``inst_mask`` [W, I], the
+    camera [W, 3|4]. Returns (rgb [W, H, Wpx, 3], depth [W, H, Wpx])."""
     h, w = cfg.height, cfg.width
     o, d = camera_rays(cfg, cam_pos, cam_rot)
     d = d.reshape(-1, h * w, 3)
     args = (cfg, mesh, inst_pos, inst_rot, inst_scale, inst_obj, inst_mask)
-    if cfg.tracer == "matmul":
+    if tracer == "matmul":
         # pinhole: every ray of the view starts at the camera
         rgb, dep = _trace_rays_matmul(*args, cam_pos, d)
-    elif cfg.tracer == "mt":
-        rgb, dep = _trace_rays(*args, o.reshape(-1, h * w, 3), d)
     else:
-        raise ValueError(f"unknown tracer {cfg.tracer!r}")
+        rgb, dep = _trace_rays(*args, o.reshape(-1, h * w, 3), d)
     return rgb.reshape(-1, h, w, 3), dep.reshape(-1, h, w)

@@ -322,8 +322,9 @@ def render_views_tlas(cfg, mesh: MeshTables, inst_pos, inst_rot, inst_scale,
     Returns (rgb [W, V, H, Wpx, 3], depth [W, V, H, Wpx], overlap
     [W, V]: the true per-view overlap count, for overflow detection)."""
     from .blas import _take
-    from .raycast import per_view, trace_view
+    from .raycast import per_view, resolve_tracer, trace_view
 
+    tracer = resolve_tracer(cfg)
     k = max_instances_per_view
     obj_lo, obj_hi = object_aabbs(mesh)
     n_views = cam_pos.shape[1]
@@ -353,7 +354,7 @@ def render_views_tlas(cfg, mesh: MeshTables, inst_pos, inst_rot, inst_scale,
         idx, ok, n_overlap = cull_view_topk(
             lo, hi, inst_mask[:, v], cp, cr, k, cfg.fov_deg,
             cfg.width / cfg.height, cfg.t_max)
-        rgb, dep = trace_view(cfg, mesh, *(_take(a, idx) for a in (
+        rgb, dep = trace_view(cfg, tracer, mesh, *(_take(a, idx) for a in (
             inst_pos, inst_rot, inst_scale, inst_obj)), ok, cp, cr)
         rgbs.append(rgb)
         deps.append(dep)

@@ -28,12 +28,21 @@ the state holds more non-finite values than before raises, naming the
 node. ``checked`` only observes: a checked step's results are the
 unchecked step's, bit for bit. Every check reads its answer on the host,
 so a checked step runs at the host's pace.
+
+:class:`RoundingSites`, another dispatch mode, lists the ops of a call
+whose results the card can round apart from the CPU's on the same
+inputs: a division by a Python number, ``linalg_vector_norm``, a float
+sum of 3 or 4 terms over an axis (and, for review, products with Python
+numbers).
 """
 
 from __future__ import annotations
 
 import contextvars
+import dataclasses
 import math
+import os
+import sys
 from typing import Callable, Dict, Optional
 
 import torch
@@ -264,6 +273,93 @@ def _float_leaves(tree, prefix="state") -> Dict[str, torch.Tensor]:
 # TaskGraph.step at its node boundaries (None: unchecked).
 NODE_CHECK: contextvars.ContextVar = contextvars.ContextVar(
     "madrona_tpu_torch_node_check", default=None)
+
+
+# ------------------------------------------------- the card's rounding
+
+_PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__))) + os.sep
+_SUM_OPS = {"sum", "mean", "nansum"}
+
+
+@dataclasses.dataclass(frozen=True)
+class RoundingSite:
+    """An aten op whose result can round apart on the card and on the CPU
+    from the same inputs. ``kind``: ``"div"`` (a division by a Python
+    number other than a power of two, which the card turns into a
+    product with its reciprocal), ``"mul"`` (a product with such a
+    number: the same bits on both, listed because it may stand for a
+    division), ``"norm"`` (``linalg_vector_norm``: the card sums the
+    squares in another order) or ``"sum"`` (a float sum or mean of 3 or 4
+    terms over one axis, which the card pairs). ``where``: the innermost
+    line of this package that called it, relative to the package."""
+
+    kind: str
+    op: str
+    where: str
+    detail: str = ""
+
+
+def _is_number(x) -> bool:
+    return isinstance(x, (int, float)) and not isinstance(x, bool)
+
+
+def _power_of_two(x) -> bool:
+    """0, or +-2^k: a product or quotient with it rounds alike on the
+    card and the CPU."""
+    return x == 0 or math.frexp(abs(x))[0] == 0.5
+
+
+def _caller() -> str:
+    """``file:line`` of the innermost frame of this package outside this
+    file."""
+    f = sys._getframe(1)
+    while f is not None:
+        path = os.path.abspath(f.f_code.co_filename)
+        if path.startswith(_PACKAGE) and path != os.path.abspath(__file__):
+            return f"{path[len(_PACKAGE):]}:{f.f_lineno}"
+        f = f.f_back
+    return "?"
+
+
+class RoundingSites(TorchDispatchMode):
+    """Lists in ``sites`` every :class:`RoundingSite` of the ops run
+    under it, in order, each once; the ops' results are unchanged::
+
+        with RoundingSites() as mode:
+            sim.step(inputs)
+        print(mode.sites)
+    """
+
+    def __init__(self):
+        super().__init__()
+        self.sites = []
+        self._seen = set()
+
+    def _add(self, kind, op, detail=""):
+        site = RoundingSite(kind, op, _caller(), detail)
+        if site not in self._seen:
+            self._seen.add(site)
+            self.sites.append(site)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        op = _op_name(func)
+        x = args[0] if args else None
+        floats = torch.is_tensor(x) and x.is_floating_point()
+        if op in ("div", "div_", "mul", "mul_") and floats \
+                and len(args) > 1 and _is_number(args[1]) \
+                and not _power_of_two(args[1]):
+            div = op.startswith("div")
+            self._add("div" if div else "mul", op,
+                      f"{'/' if div else '*'} {args[1]!r}")
+        elif op == "linalg_vector_norm":
+            self._add("norm", op)
+        elif op in _SUM_OPS and floats and len(args) > 1 and args[1]:
+            dims = args[1] if isinstance(args[1], (list, tuple)) else [args[1]]
+            terms = math.prod(x.shape[d] for d in dims) if x.dim() else 1
+            if 2 < terms <= 4:
+                self._add("sum", op, f"{terms} terms")
+        return func(*args, **kwargs)
 
 
 def checked(fn: Callable) -> Callable:

@@ -9,19 +9,30 @@ contraction) can repeat them bit for bit. An AABB is a pair
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
 def dot(a, b):
-    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+    p = a * b
+    return p[..., 0] + p[..., 1] + p[..., 2]
+
+
+@functools.lru_cache(maxsize=None)
+def _cycle(device, shift: int) -> torch.Tensor:
+    """The index of the components (y, z, x) (shift 1) or (z, x, y)
+    (shift 2) on ``device``, built once."""
+    return torch.tensor([(i + shift) % 3 for i in range(3)], device=device)
 
 
 def cross(a, b):
-    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
-    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
-    return torch.stack(
-        [a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], dim=-1
-    )
+    """a x b: component i is a[i+1] * b[i+2] - a[i+2] * b[i+1] (indices
+    mod 3), each product and the difference rounded once, as written
+    out component by component."""
+    yzx, zxy = _cycle(a.device, 1), _cycle(a.device, 2)
+    return (a.index_select(-1, yzx) * b.index_select(-1, zxy)
+            - a.index_select(-1, zxy) * b.index_select(-1, yzx))
 
 
 def length2(v):
@@ -65,24 +76,41 @@ def quat(w, x, y, z, dtype=torch.float32, device=None):
     return torch.tensor([w, x, y, z], dtype=dtype, device=device)
 
 
+# quat_mul's terms: for each component of a, the components of b it
+# multiplies, in [b | -b] (index 4 + i is -b[i]), one per component of
+# the product
+_QMUL = ((0, 1, 2, 3), (5, 0, 7, 2), (6, 3, 0, 5), (7, 6, 1, 0))
+
+
+@functools.lru_cache(maxsize=None)
+def _qmul_index(device):
+    return tuple(torch.tensor(i, device=device) for i in _QMUL)
+
+
+@functools.lru_cache(maxsize=None)
+def _conj_sign(device, dtype):
+    return torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=dtype, device=device)
+
+
 def quat_mul(a, b):
-    """Hamilton product a*b."""
-    aw, ax, ay, az = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
-    bw, bx, by, bz = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
-    return torch.stack(
-        [
-            aw * bw - ax * bx - ay * by - az * bz,
-            aw * bx + ax * bw + ay * bz - az * by,
-            aw * by - ax * bz + ay * bw + az * bx,
-            aw * bz + ax * by - ay * bx + az * bw,
-        ],
-        dim=-1,
-    )
+    """Hamilton product a*b, each component's four products added left
+    to right as written out:
+        w = aw*bw - ax*bx - ay*by - az*bz
+        x = aw*bx + ax*bw + ay*bz - az*by
+        y = aw*by - ax*bz + ay*bw + az*bx
+        z = aw*bz + ax*by - ay*bx + az*bw
+    (a term subtracted is its negation added: the same rounding)."""
+    signed = torch.cat([b, -b], dim=-1)
+    idx = _qmul_index(b.device)
+    out = a[..., 0:1] * signed.index_select(-1, idx[0])
+    for i in (1, 2, 3):
+        out = out + a[..., i:i + 1] * signed.index_select(-1, idx[i])
+    return out
 
 
 def quat_inv(q):
     """Inverse of a unit quaternion (its conjugate)."""
-    return torch.cat([q[..., :1], -q[..., 1:4]], dim=-1)
+    return q * _conj_sign(q.device, q.dtype)
 
 
 def quat_rotate(q, v):
@@ -108,6 +136,21 @@ def sum_in_order(x, dim=-1):
     for p in parts[1:]:
         out = out + p
     return out
+
+
+def norm(v):
+    """``|v|`` over the last axis, in the CPU's rounding of
+    ``torch.linalg.vector_norm``: each square added to the sum so far
+    by a fused multiply-add, left to right, and the square root rounded
+    once. Formed in float64, where a product of two float32 values is
+    exact and each sum is rounded back to float32, so the card gives the
+    same bits; the card's own ``vector_norm`` adds the squares in
+    another order."""
+    parts = v.double().unbind(-1)
+    s = (parts[0] * parts[0]).float()
+    for p in parts[1:]:
+        s = (s.double() + p * p).float()
+    return torch.sqrt(s.double()).float()
 
 
 def quat_normalize(q):

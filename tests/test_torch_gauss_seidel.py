@@ -130,16 +130,23 @@ def test_solves_match_jax(jax_run, part):
         assert _diff(getattr(tb, f), getattr(jb, f)) <= tol, f
 
 
-def test_node_matches_jax_each_step(jax_run):
-    """One step of the port's node from the carried JAX state at each of
-    30 steps, within the golden bounds."""
-    ex, _, _, states = jax_run
+@pytest.fixture(scope="module")
+def port_steps(jax_run):
+    """(the port's step function, its step from each carried JAX state)."""
+    _, _, _, states = jax_run
     t_ex, _, _ = stack_scene(True, PhysicsConfig(solver="gauss_seidel",
                                                  dt=DT), W)
     step = t_ex.step_fn()
+    return step, [step(carry_state(states[t]), {})[0] for t in range(STEPS)]
+
+
+def test_node_matches_jax_each_step(jax_run, port_steps):
+    """One step of the port's node from the carried JAX state at each of
+    30 steps, within the golden bounds."""
+    ex, _, _, states = jax_run
     worst = {k: 0.0 for k in GOLDEN}
     for t in range(STEPS):
-        got, _ = step(carry_state(states[t]), {})
+        got = port_steps[1][t]
         gc = got.tables[tapi.RIGID_BODY].columns
         rc = jax_tree(states[t + 1].tables[japi.RIGID_BODY].columns)
         for k, g, r in (
@@ -178,7 +185,7 @@ class _PairedSums(TorchDispatchMode):
         return func(*args, **kwargs)
 
 
-def test_step_does_not_depend_on_the_sum_order(jax_run):
+def test_step_does_not_depend_on_the_sum_order(jax_run, port_steps):
     """The squares of a quaternion that an H100 summed to 1.0000004768
     where the CPU gets 1.0000003576 (the card pairs the terms): in
     chip_smoke.py's phase 29 that one ulp of a norm in the position solve
@@ -194,11 +201,9 @@ def test_step_does_not_depend_on_the_sum_order(jax_run):
     assert (paired, float(sq.sum(dim=-1))) == (1.0000004768371582,
                                                1.0000003576278687)
     _, _, _, states = jax_run
-    t_ex, _, _ = stack_scene(True, PhysicsConfig(solver="gauss_seidel",
-                                                 dt=DT), W)
-    step = t_ex.step_fn()
+    step, steps = port_steps
     for t in range(0, STEPS, 3):
-        want = step(carry_state(states[t]), {})[0]
+        want = steps[t]
         with _PairedSums():
             got = step(carry_state(states[t]), {})[0]
         gc = got.tables[tapi.RIGID_BODY].columns

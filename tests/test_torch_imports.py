@@ -7,8 +7,8 @@ JAX: no module of theirs may import jax or anything of the JAX package
 (madrona_tpu), not even a numpy-only module; nor triton, which no kernel
 of the port uses and the CPU machines lack. Checked by parsing every
 source file, and by importing the package, its shell (tracing, debug,
-roofline, navmesh, viz, parallel) and the distributed and viewer
-examples in a fresh interpreter, which must not have loaded the JAX
+roofline, navmesh, viz, parallel), the distributed and viewer examples
+and the weak-scaling and step-profile scripts in a fresh interpreter, which must not have loaded the JAX
 package's prebuilt libmadrona_native.so either."""
 
 import ast
@@ -75,6 +75,8 @@ def test_package_import_leaves_jax_out():
         "madrona_tpu_torch.parallel.distributed; "
         "sys.path.insert(0, 'examples'); "
         "import torch_train_ppo_distributed, torch_viewer_demo; "
+        "sys.path.insert(0, 'scripts'); "
+        "import torch_weak_scaling, torch_step_profile; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]; "
         "import os; maps = '/proc/self/maps'; "
@@ -88,7 +90,8 @@ def test_package_import_leaves_jax_out():
 
 
 def test_new_modules_are_parsed():
-    """The shell's modules and examples are among the parsed sources."""
+    """The shell's modules, examples and scripts are among the parsed
+    sources."""
     names = {str(p.relative_to(ROOT)) for p in SOURCES}
     assert {
         "madrona_tpu_torch/utils/tracing.py",
@@ -106,4 +109,6 @@ def test_new_modules_are_parsed():
         "madrona_tpu_torch/parallel/__init__.py",
         "examples/torch_train_ppo_distributed.py",
         "examples/torch_viewer_demo.py",
+        "scripts/torch_weak_scaling.py",
+        "scripts/torch_step_profile.py",
     } <= names
