@@ -237,6 +237,17 @@ Phases, each printing its own lines:
      wrapper and plain ms on the imported scene beside its render floor
      on the scene's live rows (utils/roofline.render_floor_s) and its
      bound on the run's data;
+ 31b. the image decoders without PIL (assets/jpeg.py, assets/png.py):
+     every file of tests/goldens/torch_images.npz (PIL's JPEGs of each
+     variant, 4:4:0 and mixed factors, CMYK and YCCK, a 16-bit Adam7
+     PNG) decoded on the host equal to PIL's RGBA byte for byte, the
+     1024 x 1024 4:2:0 JPEG by the SHA-256 of PIL's RGBA, its decode ms;
+     a .glb cube with a 4:2:0 JPEG, a .gltf quad with a progressive JPEG
+     data URI and an OBJ + MTL with the 16-bit interlaced PNG imported
+     (textures equal to the goldens), bake_assets_blas, and the scene
+     rendered by render_views_blas at 1024 worlds x 4 views of 64 x 64
+     with a shadow-casting sun: the raycast kernel launched once and no
+     other, its planes equal to its plain version; B5's device ms;
  32. examples/torch_train_ppo_pixels.py at its defaults (256 worlds, 16 x
      16 RGBD, horizon 16, two epochs): 5 updates on the dense tier
      (tlas_max_instances=8) and 2 on the BLAS tier; B1, B2, B3 and B5
@@ -253,7 +264,7 @@ Phases, each printing its own lines:
      state) and resumed in a fresh make_train for 2 more, bit-identical
      to 4 straight updates; no kernel launched by the learner.
      The JSON line's rows carry "launches_by_path": each kernel's
-     launches on the paths of phases 27-29, 31 and 32, B6's and B7's
+     launches on the paths of phases 27-29, 31, 31b and 32, B6's and B7's
      from the record kernel's tier counts.
  34. tracing and debug checks (utils/tracing.py, utils/debug.py) on
      Escape Room at 4096 worlds: 5 steps under profile_trace, each
@@ -3025,59 +3036,92 @@ CKPT_PPO_W = 1024         # the Cartpole PPO run resumed from disk
 CKPT_PPO_UPDATES = 2      # updates before and after the save
 
 
-def png_bytes(img, filters=0, palette=None, trns=None):
-    """A PNG file of ``img`` written with zlib: [H, W, C] uint8 with C =
-    1 (grey), 2 (grey, alpha), 3 (RGB) or 4 (RGBA); or, with
-    ``palette`` [P, 3] uint8 (and its alphas ``trns``), [H, W] palette
-    indices. Every row is filtered by ``filters`` (0 None, 1 Sub, 2 Up,
-    3 Average, 4 Paeth; one value, or one a row)."""
+ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+         (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))  # (y0, x0, dy, dx)
+
+
+def png_bytes(img, filters=0, palette=None, trns=None, depth=8,
+              interlace=False):
+    """A PNG file of ``img`` written with zlib: [H, W, C] samples with C =
+    1 (grey), 2 (grey, alpha), 3 (RGB) or 4 (RGBA), uint8 or, at
+    ``depth=16``, uint16; or, with ``palette`` [P, 3] uint8, [H, W]
+    palette indices. Grey and palette images may be written at ``depth``
+    1, 2 or 4 (the samples must fit). ``trns``: the palette's alphas, or
+    a grey or RGB image's colour key (one value, or three). Every row is
+    filtered by ``filters`` (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth;
+    one value, or one a row, which ``interlace`` (Adam7) cycles through
+    the passes' rows)."""
     import struct
     import zlib
 
-    img = np.asarray(img, np.uint8)
+    dtype = np.uint16 if depth == 16 else np.uint8
+    img = np.asarray(img, dtype)
     if palette is not None:
         ctype, raw = 3, img[..., None]
     else:
         raw = img if img.ndim == 3 else img[..., None]
         ctype = {1: 0, 2: 4, 3: 2, 4: 6}[raw.shape[2]]
-    h, w, bpp = raw.shape
-    rows = raw.reshape(h, w * bpp).astype(np.int64)
-    kinds = np.broadcast_to(np.asarray(filters), (h,))
-    out = bytearray()
-    prior = np.zeros(w * bpp, np.int64)
-    for y in range(h):
-        x = rows[y]
-        a = np.concatenate([np.zeros(bpp, np.int64), x[:-bpp]])
-        c = np.concatenate([np.zeros(bpp, np.int64), prior[:-bpp]])
-        b = prior
-        k = int(kinds[y])
-        if k == 0:
-            f = x
-        elif k == 1:
-            f = x - a
-        elif k == 2:
-            f = x - b
-        elif k == 3:
-            f = x - (a + b) // 2
+    h, w, n = raw.shape
+    bpp = max(n * depth // 8, 1)
+    kinds = np.asarray(filters).reshape(-1)
+
+    def scanlines(px):
+        """The unfiltered rows [h', bytes] of [h', w', n] samples."""
+        if depth == 16:
+            px = px.astype(">u2").view(np.uint8).reshape(
+                px.shape[0], px.shape[1], 2 * n)
+        if depth < 8:
+            bits = (px[..., 0][..., None] >> np.arange(
+                depth - 1, -1, -1, dtype=np.uint8)) & 1
+            rows = np.packbits(bits.reshape(px.shape[0], -1), axis=1)
         else:
-            p = a + b - c
-            pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
-            f = x - np.where((pa <= pb) & (pa <= pc), a,
-                             np.where(pb <= pc, b, c))
-        out.append(k)
-        out += (f & 0xFF).astype(np.uint8).tobytes()
-        prior = x
+            rows = px.reshape(px.shape[0], -1)
+        return rows.astype(np.int64)
+
+    out = bytearray()
+    row_no = 0
+    passes = ADAM7 if interlace else ((0, 0, 1, 1),)
+    for y0, x0, dy, dx in passes:
+        sub = raw[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        rows = scanlines(sub)
+        prior = np.zeros(rows.shape[1], np.int64)
+        for x in rows:
+            a = np.concatenate([np.zeros(bpp, np.int64), x[:-bpp]])
+            c = np.concatenate([np.zeros(bpp, np.int64), prior[:-bpp]])
+            b = prior
+            k = int(kinds[row_no % len(kinds)])
+            row_no += 1
+            if k == 0:
+                f = x
+            elif k == 1:
+                f = x - a
+            elif k == 2:
+                f = x - b
+            elif k == 3:
+                f = x - (a + b) // 2
+            else:
+                p = a + b - c
+                pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+                f = x - np.where((pa <= pb) & (pa <= pc), a,
+                                 np.where(pb <= pc, b, c))
+            out.append(k)
+            out += (f & 0xFF).astype(np.uint8).tobytes()
+            prior = x
 
     def chunk(kind, body):
         return (struct.pack(">I", len(body)) + kind + body
                 + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
     data = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(
-        ">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
+        ">IIBBBBB", w, h, depth, ctype, 0, 0, int(interlace)))
     if palette is not None:
         data += chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
-        if trns is not None:
-            data += chunk(b"tRNS", np.asarray(trns, np.uint8).tobytes())
+    if trns is not None:
+        data += chunk(b"tRNS", np.asarray(trns, np.uint8).tobytes()
+                      if palette is not None else
+                      np.asarray(trns, ">u2").reshape(-1).tobytes())
     return (data + chunk(b"IDAT", zlib.compress(bytes(out)))
             + chunk(b"IEND", b""))
 
@@ -3148,16 +3192,57 @@ def _gltf_doc(pos, tris, uv, name, image):
     return doc, blob
 
 
+def write_gltf_quad(path, name, image, mime):
+    """A .gltf quad whose base-colour texture ``image`` (file bytes of
+    type ``mime``) and buffer are data URIs. Returns ``path``."""
+    import base64
+    import json
+
+    quad = np.array([[-1, 0, -1], [1, 0, -1], [1, 0, 1], [-1, 0, 1]],
+                    np.float32)
+    quad_uv = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
+    doc, blob = _gltf_doc(quad, np.array([[0, 1, 2], [0, 2, 3]], np.int32),
+                          quad_uv, name, {
+                              "uri": f"data:{mime};base64,"
+                              + base64.b64encode(image).decode()})
+    doc["buffers"] = [{"uri": "data:application/octet-stream;base64,"
+                       + base64.b64encode(blob).decode(),
+                       "byteLength": len(blob)}]
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    return path
+
+
+def write_glb_cube(path, name, image, mime):
+    """A .glb cube whose base-colour texture ``image`` (file bytes of type
+    ``mime``) lies in its binary chunk. Returns ``path``."""
+    import json
+    import struct
+
+    cpos, ctris, cuv = _cube()
+    doc, blob = _gltf_doc(cpos, ctris, cuv, name, {
+        "bufferView": 3, "mimeType": mime})
+    pad = -len(blob) % 4
+    doc["bufferViews"].append({"buffer": 0, "byteOffset": len(blob) + pad,
+                               "byteLength": len(image)})
+    blob = blob + b"\0" * pad + image
+    blob += b"\0" * (-len(blob) % 4)
+    doc["buffers"] = [{"byteLength": len(blob)}]
+    js = json.dumps(doc).encode()
+    js += b" " * (-len(js) % 4)
+    glb = (struct.pack("<II", len(js), 0x4E4F534A) + js
+           + struct.pack("<II", len(blob), 0x004E4942) + blob)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<III", 0x46546C67, 2, 12 + len(glb)) + glb)
+    return path
+
+
 def write_assets(d):
     """Phase 31's files in directory ``d``, by this script's own
     writers: an OBJ with an MTL and a 24 x 20 RGBA PNG texture whose
     alpha runs below 255 (Paeth-filtered rows); a .gltf quad with a
     data-URI RGB PNG; a .glb cube whose PNG lies in its binary chunk;
     a .usda cube under two Xforms. Returns their paths."""
-    import base64
-    import json
-    import struct
-
     paths = {}
     pos, tris, _ = _grid_mesh(12, 4.0)
     tex = np.zeros((20, 24, 4), np.uint8)
@@ -3179,40 +3264,16 @@ def write_assets(d):
             for k, (a, b, c) in enumerate(tris))
     paths["obj"] = os.path.join(d, "ground.obj")
 
-    quad = np.array([[-1, 0, -1], [1, 0, -1], [1, 0, 1], [-1, 0, 1]],
-                    np.float32)
-    quad_uv = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
-    png = png_bytes(_checker(8, ((255, 0, 0), (0, 0, 255))), filters=1)
-    doc, blob = _gltf_doc(quad, np.array([[0, 1, 2], [0, 2, 3]], np.int32),
-                          quad_uv, "quad", {
-                              "uri": "data:image/png;base64,"
-                              + base64.b64encode(png).decode()})
-    doc["buffers"] = [{"uri": "data:application/octet-stream;base64,"
-                       + base64.b64encode(blob).decode(),
-                       "byteLength": len(blob)}]
-    paths["gltf"] = os.path.join(d, "quad.gltf")
-    with open(paths["gltf"], "w") as f:
-        json.dump(doc, f)
+    paths["gltf"] = write_gltf_quad(
+        os.path.join(d, "quad.gltf"), "quad",
+        png_bytes(_checker(8, ((255, 0, 0), (0, 0, 255))), filters=1),
+        "image/png")
+    paths["glb"] = write_glb_cube(
+        os.path.join(d, "cube.glb"), "cube",
+        png_bytes(_checker(16, ((250, 220, 40), (30, 30, 30))),
+                  filters=[0, 1, 2, 3, 4] * 3 + [2]), "image/png")
 
-    cpos, ctris, cuv = _cube()
-    png = png_bytes(_checker(16, ((250, 220, 40), (30, 30, 30))),
-                    filters=[0, 1, 2, 3, 4] * 3 + [2])
-    doc, blob = _gltf_doc(cpos, ctris, cuv, "cube", {
-        "bufferView": 3, "mimeType": "image/png"})
-    pad = -len(blob) % 4
-    doc["bufferViews"].append({"buffer": 0, "byteOffset": len(blob) + pad,
-                               "byteLength": len(png)})
-    blob = blob + b"\0" * pad + png
-    blob += b"\0" * (-len(blob) % 4)
-    doc["buffers"] = [{"byteLength": len(blob)}]
-    js = json.dumps(doc).encode()
-    js += b" " * (-len(js) % 4)
-    glb = (struct.pack("<II", len(js), 0x4E4F534A) + js
-           + struct.pack("<II", len(blob), 0x004E4942) + blob)
-    paths["glb"] = os.path.join(d, "cube.glb")
-    with open(paths["glb"], "wb") as f:
-        f.write(struct.pack("<III", 0x46546C67, 2, 12 + len(glb)) + glb)
-
+    cpos = _cube()[0]
     pts = ", ".join(f"({x:g}, {y:g}, {z:g})" for x, y, z in cpos)
     quads = [(0, 1, 3, 2), (4, 6, 7, 5), (0, 4, 5, 1), (2, 3, 7, 6),
              (0, 2, 6, 4), (1, 5, 7, 3)]
@@ -3242,6 +3303,65 @@ def Xform "root"
     }}
 }}
 ''')
+    return paths
+
+
+IMAGE_GOLDENS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "tests", "goldens", "torch_images.npz")
+
+
+def image_asset_png():
+    """The OBJ's map_Kd texture of phase 31b: a 28 x 20 RGBA PNG at 16
+    bits, Adam7-interlaced, alpha below 255, written by png_bytes."""
+    rs = np.random.RandomState(9)
+    yy, xx = np.mgrid[0:20, 0:28]
+    img = np.stack([xx * 2300, yy * 3100, (xx * yy * 97) % 65536,
+                    65535 - xx * 1800], -1) + rs.randint(0, 256, (20, 28, 4))
+    return png_bytes(np.clip(img, 0, 65535).astype(np.uint16), depth=16,
+                     interlace=True, filters=[0, 1, 2, 3, 4])
+
+
+def load_image_goldens():
+    """{name: file bytes}, {name: PIL's RGBA [H, W, 4] uint8} and
+    {name: (the SHA-256 of PIL's RGBA, its shape)} of
+    tests/goldens/torch_images.npz (written by
+    tests/test_torch_image_decode.py with PIL, which the card's machine
+    lacks)."""
+    files, rgba, sha = {}, {}, {}
+    with np.load(IMAGE_GOLDENS) as z:
+        for k in z.files:
+            name, kind = k.rsplit(".", 1)
+            if kind == "file":
+                files[name] = z[k].tobytes()
+            elif kind == "rgba":
+                rgba[name] = z[k]
+            elif kind == "sha256":
+                sha[name] = (z[k].tobytes(), tuple(z[name + ".shape"]))
+    return files, rgba, sha
+
+
+def write_image_assets(d, files):
+    """Phase 31b's files in directory ``d``: a .glb cube whose base-colour
+    texture is a 4:2:0 JPEG in its binary chunk (``files["glb_420"]``), a
+    .gltf quad with a progressive JPEG as a data URI
+    (``files["gltf_prog"]``), and an OBJ + MTL whose map_Kd is
+    image_asset_png(). Returns their paths."""
+    paths = {
+        "glb": write_glb_cube(os.path.join(d, "jcube.glb"), "jcube",
+                              files["glb_420"], "image/jpeg"),
+        "gltf": write_gltf_quad(os.path.join(d, "jquad.gltf"), "jquad",
+                                files["gltf_prog"], "image/jpeg"),
+    }
+    pos, tris, _ = _grid_mesh(10, 4.0)
+    with open(os.path.join(d, "deep.png"), "wb") as f:
+        f.write(image_asset_png())
+    with open(os.path.join(d, "deep.mtl"), "w") as f:
+        f.write("newmtl deep\nKd 0.8 0.9 1.0\nNs 100\nmap_Kd deep.png\n")
+    with open(os.path.join(d, "deep.obj"), "w") as f:
+        f.write("mtllib deep.mtl\nusemtl deep\n")
+        f.writelines(f"v {x:.6f} {y:.6f} {z:.6f}\n" for x, y, z in pos)
+        f.writelines(f"f {a + 1} {b + 1} {c + 1}\n" for a, b, c in tris)
+    paths["obj"] = os.path.join(d, "deep.obj")
     return paths
 
 
@@ -3450,6 +3570,99 @@ def check_assets(kernels, card):
           f"(utils/roofline.render_floor_s), bound on this run's data "
           f"{b_ms:.5f} ms ({b_by}) ({card})")
     return launches, (planes, opts, n_rays), worst
+
+
+def check_image_assets(kernels, card):
+    """Phase 31b. The golden images decoded on the host by the port's
+    decoders, equal to PIL's bytes; the JPEG and 16-bit interlaced PNG
+    textured files imported, baked and rendered through B5. Returns
+    (launches a counter, B5's largest difference from its plain
+    version)."""
+    import hashlib
+    import tempfile
+
+    import torch
+    from madrona_tpu_torch.assets.importer import import_assets
+    from madrona_tpu_torch.assets.jpeg import decode_jpeg
+    from madrona_tpu_torch.assets.png import decode_png
+    from madrona_tpu_torch.ops import raycast_cuda as rck
+    from madrona_tpu_torch.render import blas as rblas
+    from madrona_tpu_torch.render import kernel as rkernel
+    from madrona_tpu_torch.render.lights import make_lights
+    from madrona_tpu_torch.render.raycast import RenderConfig
+
+    files, rgba, sha = load_image_goldens()
+    t0 = time.perf_counter()
+    for name, want in rgba.items():
+        decode = decode_png if name == "mtl_png16" else decode_jpeg
+        got = decode(files[name])
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"image {name}: decoded RGBA != PIL's")
+    all_s = time.perf_counter() - t0
+    for name, (digest, shape) in sha.items():
+        got = decode_jpeg(files[name])
+        if (got.shape != shape
+                or hashlib.sha256(got.tobytes()).digest() != digest):
+            raise AssertionError(f"image {name}: decoded RGBA != PIL's")
+        best = float("inf")
+        for _ in range(5):
+            t1 = time.perf_counter()
+            decode_jpeg(files[name])
+            best = min(best, time.perf_counter() - t1)
+        print(f"image decoders: {len(rgba)} golden files ({all_s:.3f} s) "
+              f"and the {shape[1]} x {shape[0]} 4:2:0 JPEG ({len(files[name])}"
+              f" bytes) equal to PIL's RGBA; that JPEG decodes in "
+              f"{best * 1e3:.2f} ms on the host ({card})")
+
+    with tempfile.TemporaryDirectory() as d:
+        paths = write_image_assets(d, files)
+        parts = [import_assets(paths[k]) for k in ("obj", "gltf", "glb")]
+    want = [rgba["mtl_png16"], rgba["gltf_prog"], rgba["glb_420"]]
+    for part, w in zip(parts, want):
+        if not np.array_equal(part.textures[0].data, w):
+            raise AssertionError("image assets: an imported texture != PIL's")
+    assets = merge_assets(parts)
+    blas, mats, _ = rblas.bake_assets_blas(assets, tex_size=ASSET_TEX,
+                                           device=DEV)
+    cfg = RenderConfig(width=ASSET_RENDER, height=ASSET_RENDER, t_max=40.0,
+                       shadows=True)
+    scene = asset_scene(len(assets.meshes), ASSET_W, ASSET_VIEWS, DEV, seed=1)
+    lights = make_lights(ASSET_W, [{"direction": (-0.2, 0.5, -1.0),
+                                    "cast_shadow": True}], device=DEV)
+    if not rkernel.kernel_eligible(cfg, blas, lights, 0, scene[0].shape[1]):
+        raise AssertionError("image assets: the scene is not the kernel's")
+    for k in kernels:
+        k.launches = 0
+    rgb, dep = rblas.render_views_blas(cfg, blas, *scene, materials=mats,
+                                       lights=lights)
+    torch.cuda.synchronize()
+    launches = [k.launches for k in kernels]
+    expect_launches("image assets render_views_blas", kernels, launches,
+                    want_of(kernels, {rck.KERNEL: 1}))
+    hit = float((dep < cfg.t_max).float().mean())
+    if not (bool(torch.isfinite(rgb).all()) and 0.3 < hit < 1.0
+            and tuple(rgb.shape) == (ASSET_W, ASSET_VIEWS, ASSET_RENDER,
+                                     ASSET_RENDER, 3)):
+        raise AssertionError(f"image assets render: hit share {hit}, shape "
+                             f"{tuple(rgb.shape)}")
+    planes, opts, n_rays = rkernel.kernel_inputs(cfg, blas, *scene,
+                                                 materials=mats,
+                                                 lights=lights)
+    worst, out = raycast_compare("JPEG and 16-bit PNG assets", planes, opts)
+    textured = float((planes[1][:, rck.A_TEX] >= 0).float().mean())
+    ms = timed_device(lambda: rck.raytrace(*planes, **opts), 20, 2)
+    wrap_ms = timed(lambda: rck.raytrace(*planes, **opts), 20, 2)
+    plain_ms = timed(lambda: rck.raytrace_plain(*planes, **opts), 1, 1)
+    b_ms, b_by = bound(*raycast_cost(planes, opts, n_rays, out))
+    sizes = [t.data.shape[:2] for t in assets.textures]
+    print(f"image assets: {len(assets.meshes)} meshes (OBJ + MTL with a "
+          f"16-bit Adam7 PNG, .gltf with a progressive JPEG, .glb with a "
+          f"4:2:0 JPEG), textures {sizes} resampled to {ASSET_TEX}^2; {ASSET_W} worlds x {ASSET_VIEWS} "
+          f"views of {ASSET_RENDER}^2 through the raycast kernel, hit share "
+          f"{hit:.3f}, textured rows {textured:.3f}; raycast device "
+          f"{ms:.4f} ms, wrapper {wrap_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound on this run's data {b_ms:.5f} ms ({b_by}) ({card})")
+    return launches, worst
 
 
 def check_ppo_pixels(ppo_px, kernels, b_kernels, card):
@@ -4978,6 +5191,15 @@ def main() -> int:
     later = {}
     later["assets"], _, asset_err = check_assets(all_k, card)
     print(f"phase 31: {time.perf_counter() - t0:.1f} s ({card})")
+
+    lap("31b")
+    # ---- 31b: JPEG and 16-bit interlaced PNG textures decoded without
+    # PIL, imported and rendered through B5
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    later["image_assets"], image_err = check_image_assets(all_k, card)
+    asset_err = max(asset_err, image_err)
+    print(f"phase 31b: {time.perf_counter() - t0:.1f} s ({card})")
 
     lap("32")
     # ---- 32: the pixel learner at its defaults on both render tiers

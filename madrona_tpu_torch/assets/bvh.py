@@ -2,11 +2,10 @@
 
 Port of ``madrona_tpu/assets/bvh.py``. The builder is C++ host code of
 the port's own (``native/bvh_build.cpp``, a copy of the BVH part of the
-JAX package's native importer): :func:`build_mesh_bvh` compiles it with
-``g++ -O2 -shared -fPIC -std=c++17`` at first use into
-``madrona_tpu_torch/_build/``, keyed by a hash of the source and the
-flags, and binds it with ctypes. Without g++, or if the build fails, it
-raises: there is no Python builder to fall back to.
+JAX package's native importer): :func:`build_mesh_bvh` builds it with
+g++ at first use (:mod:`.native_build`) and binds it with ctypes. Without
+g++, or if the build fails, it raises: there is no Python builder to
+fall back to.
 
 The arrays are numpy, as in the JAX package: ``render/blas.py::bake_blas``
 stacks them into device tensors.
@@ -16,18 +15,12 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 
-PKG = Path(__file__).resolve().parent.parent
-SOURCE = PKG / "native" / "bvh_build.cpp"
-BUILD_DIR = PKG / "_build"
-FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17"]
+from . import native_build
+
+SOURCE = native_build.NATIVE / "bvh_build.cpp"
 
 
 class _BVHOut(ctypes.Structure):
@@ -41,30 +34,9 @@ class _BVHOut(ctypes.Structure):
     ]
 
 
-def library_path() -> Path:
+def library_path():
     """Where the builder's library lives, keyed by its source and flags."""
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(FLAGS).encode())
-    return BUILD_DIR / f"bvh_build-{h.hexdigest()[:16]}.so"
-
-
-def _build() -> Path:
-    out = library_path()
-    if out.exists():
-        return out
-    gxx = shutil.which("g++")
-    if gxx is None:
-        raise RuntimeError("g++ not found: the mesh BVH builder cannot be "
-                           "built")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    r = subprocess.run([gxx, *FLAGS, "-o", str(tmp), str(SOURCE)],
-                       capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"g++ failed for {SOURCE.name} (rc "
-                           f"{r.returncode}):\n{r.stdout}{r.stderr}")
-    os.replace(tmp, out)
-    return out
+    return native_build.library_path(SOURCE)
 
 
 _LIB = None
@@ -73,7 +45,7 @@ _LIB = None
 def _lib():
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(_build()))
+        lib = ctypes.CDLL(str(native_build.build(SOURCE)))
         lib.bvh_build.restype = ctypes.POINTER(_BVHOut)
         lib.bvh_build.argtypes = [
             ctypes.POINTER(ctypes.c_float), ctypes.c_int64,

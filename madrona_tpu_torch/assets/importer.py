@@ -6,9 +6,13 @@ follows the JAX package's Python parser (``_load_obj_py``: 1-based and
 negative indices, polygon fan triangulation); the port loads no native
 OBJ library. glTF is parsed in Python (data URIs, ``.bin`` buffers and
 ``.glb``), with its materials and images; an OBJ's ``.mtl`` gives Kd,
-Ns and map_Kd. Images are decoded by :func:`.png.decode_png` (the JAX
-package uses PIL, which the machines with the card lack): PNG only, see
-that module for the variants it decodes.
+Ns and map_Kd. Images are decoded to the bytes of the JAX package's
+``PIL.Image.open(...).convert("RGBA")`` without PIL, which the machines
+with the card lack: :func:`_decode_image` picks the decoder by the file's
+magic bytes, :func:`.png.decode_png` (every PNG) or
+:func:`.jpeg.decode_jpeg` (baseline and progressive JPEG; see those
+modules for the variants). Other formats (TGA, BMP, GIF, WebP, which an
+MTL ``map_Kd`` may name but glTF does not allow) raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -22,6 +26,9 @@ from typing import List
 
 import numpy as np
 
+from .jpeg import MAGIC as JPEG_MAGIC
+from .jpeg import decode_jpeg
+from .png import SIGNATURE as PNG_SIGNATURE
 from .png import decode_png
 
 
@@ -69,8 +76,20 @@ class ImportedAssets:
     textures: List[ImportedTexture]
 
 
+_REFUSED = ((b"GIF87a", "GIF"), (b"GIF89a", "GIF"), (b"BM", "BMP"),
+            (b"RIFF", "WebP"))
+
+
 def _decode_image(data: bytes, name: str = "") -> ImportedTexture:
-    return ImportedTexture(name, decode_png(data))
+    """A texture of an image file's bytes, decoded by its magic bytes."""
+    if data.startswith(PNG_SIGNATURE):
+        return ImportedTexture(name, decode_png(data))
+    if data.startswith(JPEG_MAGIC):
+        return ImportedTexture(name, decode_jpeg(data))
+    kind = next((k for magic, k in _REFUSED if data.startswith(magic)),
+                "TGA or another format without magic bytes")
+    raise ValueError(f"texture {name!r}: {kind} images are not decoded "
+                     "(PNG and JPEG are)")
 
 
 def load_obj(path: str) -> ImportedMesh:

@@ -2,14 +2,21 @@
 
 The JAX package decodes textures with PIL (``Image.open(...).convert(
 "RGBA")``), which the machines with the card lack. This module decodes
-the PNG variants asset files carry to the same bytes, not interlaced:
-colour types 2 (RGB), 4 (grey and alpha) and 6 (RGBA) at 8 bits a
-sample, 0 (grey) and 3 (palette, with ``tRNS`` alpha) at 1, 2, 4 or 8
-bits (PIL writes small palettes at 4 bits), every scanline filter (None,
-Sub, Up, Average, Paeth). A ``tRNS`` colour key on grey or RGB makes the
-matching pixels transparent, as PIL's conversion does. Any other format
-or variant (JPEG, 16-bit samples, Adam7 interlacing) raises
-``ValueError`` naming it.
+every PNG PIL reads to the same bytes: colour types 0 (grey) at 1, 2, 4,
+8 and 16 bits, 3 (palette, with ``tRNS`` alpha) at 1, 2, 4 and 8, and 2
+(RGB), 4 (grey and alpha) and 6 (RGBA) at 8 and 16; every scanline
+filter (None, Sub, Up, Average, Paeth); plain or Adam7-interlaced rows.
+
+Pillow opens 16-bit files in its own modes, and its conversion gives:
+  * grey ("I;16"): each sample clipped to 255 (not its high byte);
+  * RGB ("RGB;16B"), grey and alpha ("LA;16B") and RGBA ("RGBA;16B"):
+    the high byte of each sample.
+A ``tRNS`` colour key on grey or RGB makes transparent the pixels whose
+converted 8-bit samples equal the key's low byte (Pillow's
+``rgbT2rgba``), at every depth: at 16 bits, the low byte of the 16-bit
+key against the clipped or high-byte samples; at 2 and 4 bits, the raw
+key against the scaled grey (so only a key of 0 can match); at 1 bit a
+key of 1 means white. Any other variant raises ``ValueError`` naming it.
 """
 
 from __future__ import annotations
@@ -88,12 +95,29 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
+ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+         (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))  # (y0, x0, dy, dx)
+
+
+def _samples(raw: bytes, h: int, w: int, n: int, depth: int) -> np.ndarray:
+    """[h, w, n] samples (uint8, or uint16 at 16 bits) of ``h``
+    filtered scanlines of ``w`` pixels."""
+    stride = (w * n * depth + 7) // 8
+    rows = _unfilter(raw, h, stride, max(n * depth // 8, 1))
+    if depth == 16:
+        return rows.view(">u2").reshape(h, w, n).astype(np.uint16)
+    if depth == 8:
+        return rows.reshape(h, w, n)
+    # samples packed from the high bits of each byte
+    bits = np.unpackbits(rows, axis=1)[:, :w * depth].reshape(h, w, depth)
+    return (bits << np.arange(depth - 1, -1, -1, dtype=np.uint8)).sum(
+        -1, dtype=np.uint8)[..., None]
+
+
 def decode_png(data: bytes) -> np.ndarray:
     """[H, W, 4] uint8 RGBA of a PNG file's bytes (see the module doc)."""
     if not data.startswith(SIGNATURE):
-        kind = ("JPEG" if data[:3] == b"\xff\xd8\xff" else
-                "an unknown format")
-        raise ValueError(f"texture image is {kind}; only PNG is decoded")
+        raise ValueError("not a PNG file (no PNG signature)")
     header, palette, trns, idat = None, None, None, []
     for kind, body in _chunks(data):
         if kind == b"IHDR":
@@ -111,23 +135,27 @@ def decode_png(data: bytes) -> np.ndarray:
     w, h, depth, ctype, _, _, interlace = header
     if ctype not in CHANNELS:
         raise ValueError(f"PNG: colour type {ctype} is not defined")
-    if depth != 8 and not (ctype in (0, 3) and depth in (1, 2, 4)):
+    allowed = {0: (1, 2, 4, 8, 16), 3: (1, 2, 4, 8)}.get(ctype, (8, 16))
+    if depth not in allowed:
         raise ValueError(f"PNG: {depth}-bit samples of colour type {ctype} "
-                         "are not decoded")
-    if interlace:
-        raise ValueError("PNG: Adam7 interlacing is not decoded")
+                         "are not defined")
+    if interlace > 1:
+        raise ValueError(f"PNG: interlace method {interlace} is not defined")
     n = CHANNELS[ctype]
-    stride = (w * n * depth + 7) // 8
-    rows = _unfilter(zlib.decompress(b"".join(idat)), h, stride,
-                     max(n * depth // 8, 1))
-    if depth < 8:
-        # samples packed from the high bits of each byte
-        bits = np.unpackbits(rows, axis=1)[:, :w * depth].reshape(
-            h, w, depth)
-        px = (bits << np.arange(depth - 1, -1, -1, dtype=np.uint8)).sum(
-            -1, dtype=np.uint8)[..., None]
+    raw = zlib.decompress(b"".join(idat))
+    if not interlace:
+        px = _samples(raw, h, w, n, depth)
     else:
-        px = rows.reshape(h, w, n)
+        px = np.zeros((h, w, n), np.uint16 if depth == 16 else np.uint8)
+        pos = 0
+        for y0, x0, dy, dx in ADAM7:
+            ph, pw = -(-(h - y0) // dy), -(-(w - x0) // dx)
+            if ph <= 0 or pw <= 0:
+                continue
+            size = ph * ((pw * n * depth + 7) // 8 + 1)
+            px[y0::dy, x0::dx] = _samples(raw[pos:pos + size], ph, pw, n,
+                                          depth)
+            pos += size
     out = np.full((h, w, 4), 255, np.uint8)
     if ctype == 3:
         if palette is None:
@@ -141,19 +169,24 @@ def decode_png(data: bytes) -> np.ndarray:
         out[..., :3] = rgb[idx]
         out[..., 3] = alpha[idx]
         return out
-    if ctype == 0 and depth < 8:
-        scaled = px.astype(np.int64) * 255 // ((1 << depth) - 1)
-        out[..., :3] = scaled.astype(np.uint8)
-    elif ctype in (0, 4):
-        out[..., :3] = px[..., :1]
+    if depth == 16:
+        # Pillow: "I;16" grey clipped to 255, the other modes' high bytes
+        conv = (np.minimum(px, 255) if ctype == 0 else px >> 8).astype(
+            np.uint8)
+    elif ctype == 0 and depth < 8:
+        conv = (px.astype(np.int64) * 255 // ((1 << depth) - 1)).astype(
+            np.uint8)
     else:
-        out[..., :3] = px[..., :3]
+        conv = px
+    out[..., :3] = conv[..., :1] if ctype in (0, 4) else conv[..., :3]
     if ctype in (4, 6):
-        out[..., 3] = px[..., -1]
+        out[..., 3] = conv[..., -1]
     elif trns is not None:
-        # a colour key: 16-bit samples of which 8-bit files use the low
-        # byte
+        # a colour key: Pillow compares the converted samples with the
+        # key's low byte (a 1-bit key is black or white)
         key = np.frombuffer(trns, ">u2").astype(np.int64)
-        hit = (px.astype(np.int64) == key).all(axis=-1)
+        if depth == 1:
+            key = np.where(key != 0, 255, 0)
+        hit = (conv.astype(np.int64) == (key & 0xFF)).all(axis=-1)
         out[..., 3] = np.where(hit, 0, 255)
     return out

@@ -17,8 +17,9 @@ material indices equal:
   byte: PNGs that PIL writes (1-bit, L, LA, RGB, RGBA, 4-bit P with
   and without transparency), chip_smoke.png_bytes' PNGs with each of the five
   filters (and mixed per row) in every colour type, a palette with
-  tRNS; a 16-bit, an interlaced and a JPEG file raise ValueError (that
-  test skips where PIL is missing).
+  tRNS; a 16-bit palette, an unknown interlace method and a JPEG file
+  raise ValueError (that test skips where PIL is missing; 16-bit and
+  interlaced files are held to PIL in tests/test_torch_image_decode.py).
 """
 
 import io
@@ -283,18 +284,18 @@ def test_png_decoder_matches_pil():
     assert len(files) == 40
 
     # what is not decoded raises, naming it
-    def with_header(depth, interlace):
+    def with_header(depth, ctype, interlace):
         img = _pil_png(rs.randint(0, 256, (4, 4, 3)).astype(np.uint8))
-        body = struct.pack(">IIBBBBB", 4, 4, depth, 2, 0, 0, interlace)
+        body = struct.pack(">IIBBBBB", 4, 4, depth, ctype, 0, 0, interlace)
         ihdr = (struct.pack(">I", 13) + b"IHDR" + body
                 + struct.pack(">I", zlib.crc32(b"IHDR" + body)))
         return img[:8] + ihdr + img[8 + 25:]
 
-    with pytest.raises(ValueError, match="16-bit"):
-        decode_png(with_header(16, 0))
-    with pytest.raises(ValueError, match="Adam7"):
-        decode_png(with_header(8, 1))
+    with pytest.raises(ValueError, match="16-bit samples of colour type 3"):
+        decode_png(with_header(16, 3, 0))
+    with pytest.raises(ValueError, match="interlace method 2"):
+        decode_png(with_header(8, 2, 2))
     buf = io.BytesIO()
     Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(buf, format="JPEG")
-    with pytest.raises(ValueError, match="JPEG"):
+    with pytest.raises(ValueError, match="not a PNG"):
         decode_png(buf.getvalue())

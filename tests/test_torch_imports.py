@@ -5,7 +5,8 @@ madrona_tpu_torch, chip_smoke.py, the port's scripts
 (examples/torch_*.py; chip_smoke.py loads them too) run on machines without
 JAX: no module of theirs may import jax or anything of the JAX package
 (madrona_tpu), not even a numpy-only module; nor triton, which no kernel
-of the port uses and the CPU machines lack. Checked by parsing every
+of the port uses and the CPU machines lack; nor PIL, which the machines
+with the card lack (the port decodes its images itself). Checked by parsing every
 source file, and by importing the package, its shell (tracing, debug,
 roofline, navmesh, viz, parallel), the distributed and viewer examples
 and the weak-scaling and step-profile scripts in a fresh interpreter, which must not have loaded the JAX
@@ -23,7 +24,7 @@ SOURCES = sorted((ROOT / "madrona_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"
 ] + sorted((ROOT / "scripts").glob("torch_*.py")) + sorted(
     (ROOT / "examples").glob("torch_*.py"))
-FORBIDDEN = ("jax", "jaxlib", "madrona_tpu", "triton")
+FORBIDDEN = ("jax", "jaxlib", "madrona_tpu", "triton", "PIL")
 
 
 def _imported_roots(path):
@@ -56,7 +57,9 @@ def test_package_import_leaves_jax_out():
         "madrona_tpu_torch.render.blas, madrona_tpu_torch.render.tlas, "
         "madrona_tpu_torch.render.materials, "
         "madrona_tpu_torch.render.lights, madrona_tpu_torch.assets, "
-        "madrona_tpu_torch.assets.png, madrona_tpu_torch.assets.usd, "
+        "madrona_tpu_torch.assets.png, madrona_tpu_torch.assets.jpeg, "
+        "madrona_tpu_torch.assets.native_build, "
+        "madrona_tpu_torch.assets.usd, "
         "madrona_tpu_torch.utils.checkpoint, "
         "madrona_tpu_torch.utils.morton, "
         "madrona_tpu_torch.models.hide_seek, "
