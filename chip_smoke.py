@@ -248,6 +248,19 @@ Phases, each printing its own lines:
      rendered by render_views_blas at 1024 worlds x 4 views of 64 x 64
      with a shadow-casting sun: the raycast kernel launched once and no
      other, its planes equal to its plain version; B5's device ms;
+ 31c. the BMP, TGA, GIF and WebP decoders without PIL (assets/bmp.py,
+     tga.py, gif.py, webp.py): every fmt_* file of
+     tests/goldens/torch_images.npz decoded on the host equal to PIL's
+     RGBA byte for byte, the 1024 x 1024 lossy WebP with alpha and GIF by
+     the SHA-256 of PIL's RGBA, their decode ms; an OBJ + MTL with an RLE
+     TGA (bottom-left origin), an OBJ + MTL with an RLE8 BMP, a .gltf quad
+     with a GIF data URI (a transparency index), a .glb cube with a lossy
+     WebP with ALPH in its binary chunk and an OBJ + MTL with a lossless
+     WebP imported (textures equal to the goldens), bake_assets_blas, and
+     the scene rendered by render_views_blas at 1024 worlds x 4 views of
+     64 x 64 with a shadow-casting sun: the raycast kernel launched once
+     and no other, its planes equal to its plain version; B5's device,
+     wrapper and plain ms and its bound on the run's data;
  32. examples/torch_train_ppo_pixels.py at its defaults (256 worlds, 16 x
      16 RGBD, horizon 16, two epochs): 5 updates on the dense tier
      (tlas_max_instances=8) and 2 on the BLAS tier; B1, B2, B3 and B5
@@ -264,7 +277,7 @@ Phases, each printing its own lines:
      state) and resumed in a fresh make_train for 2 more, bit-identical
      to 4 straight updates; no kernel launched by the learner.
      The JSON line's rows carry "launches_by_path": each kernel's
-     launches on the paths of phases 27-29, 31, 31b and 32, B6's and B7's
+     launches on the paths of phases 27-29, 31, 31b, 31c and 32, B6's and B7's
      from the record kernel's tier counts.
  34. tracing and debug checks (utils/tracing.py, utils/debug.py) on
      Escape Room at 4096 worlds: 5 steps under profile_trace, each
@@ -3365,6 +3378,54 @@ def write_image_assets(d, files):
     return paths
 
 
+def _write_obj(path, pos, tris, mtl, texture, tex_bytes, kd):
+    """An OBJ whose MTL names ``texture`` (written from ``tex_bytes``) as
+    its map_Kd."""
+    d = os.path.dirname(path)
+    with open(os.path.join(d, texture), "wb") as f:
+        f.write(tex_bytes)
+    with open(os.path.join(d, mtl + ".mtl"), "w") as f:
+        f.write(f"newmtl {mtl}\nKd {kd}\nNs 50\nmap_Kd {texture}\n")
+    with open(path, "w") as f:
+        f.write(f"mtllib {mtl}.mtl\nusemtl {mtl}\n")
+        f.writelines(f"v {x:.6f} {y:.6f} {z:.6f}\n" for x, y, z in pos)
+        f.writelines(f"f {a + 1} {b + 1} {c + 1}\n" for a, b, c in tris)
+    return path
+
+
+FORMAT_SCENE = ("tga_obj", "gif_gltf", "webp_glb", "bmp_obj", "webp_obj")
+FORMAT_TEXTURES = {"tga_obj": "fmt_tga_rle", "gif_gltf": "fmt_gif_trns",
+                   "webp_glb": "fmt_webp_alpha", "bmp_obj": "fmt_bmp_rle8",
+                   "webp_obj": "fmt_webp_lossless"}
+
+
+def write_format_assets(d, files):
+    """Phase 31c's files in directory ``d``, textured with the golden
+    files ``files[FORMAT_TEXTURES[k]]``: a ground grid OBJ + MTL with an
+    RLE TGA (bottom-left origin), a .gltf quad with a GIF data URI (a
+    transparency index), a .glb cube with a lossy WebP with ALPH in its
+    binary chunk, and cube OBJs with an RLE8 BMP and a lossless WebP.
+    Returns {FORMAT_SCENE name: path}."""
+    tex = {k: files[v] for k, v in FORMAT_TEXTURES.items()}
+    pos, tris, _ = _grid_mesh(10, 4.0)
+    cpos, ctris, _ = _cube()
+    return {
+        "tga_obj": _write_obj(os.path.join(d, "field.obj"), pos, tris,
+                              "field", "field.tga", tex["tga_obj"],
+                              "0.9 0.9 0.8"),
+        "gif_gltf": write_gltf_quad(os.path.join(d, "sign.gltf"), "sign",
+                                    tex["gif_gltf"], "image/gif"),
+        "webp_glb": write_glb_cube(os.path.join(d, "crate.glb"), "crate",
+                                   tex["webp_glb"], "image/webp"),
+        "bmp_obj": _write_obj(os.path.join(d, "post.obj"), cpos * 0.5,
+                              ctris, "post", "post.bmp", tex["bmp_obj"],
+                              "1 1 1"),
+        "webp_obj": _write_obj(os.path.join(d, "box.obj"), cpos * 0.4,
+                               ctris, "box", "box.webp", tex["webp_obj"],
+                               "0.8 0.9 1"),
+    }
+
+
 def merge_assets(parts):
     """One ImportedAssets of several: material and texture indices
     offset."""
@@ -3391,7 +3452,7 @@ def asset_scene(n_obj, w, views, device, seed=0):
 
     rs = np.random.RandomState(seed)
     base = np.array([[0, 0, 0], [-1.5, 1.0, 1.2], [0.5, -1.0, 1.0],
-                     [0, 0, 0.4]], np.float32)[:n_obj]
+                     [0, 0, 0.4], [1.6, 0.9, 0.5]], np.float32)[:n_obj]
     pos = base[None] + rs.uniform(-0.3, 0.3, (w, n_obj, 3)).astype(
         np.float32) * np.array([1, 1, 0], np.float32)
     yaw = rs.uniform(-0.5, 0.5, (w, n_obj)).astype(np.float32)
@@ -3572,48 +3633,117 @@ def check_assets(kernels, card):
     return launches, (planes, opts, n_rays), worst
 
 
-def check_image_assets(kernels, card):
-    """Phase 31b. The golden images decoded on the host by the port's
-    decoders, equal to PIL's bytes; the JPEG and 16-bit interlaced PNG
-    textured files imported, baked and rendered through B5. Returns
-    (launches a counter, B5's largest difference from its plain
-    version)."""
+def check_golden_decodes(formats, label, card):
+    """The goldens of tests/goldens/torch_images.npz whose names start
+    with ``fmt_`` (``formats``) or do not (the JPEGs and the PNG of phase
+    31b), decoded on the host by the port's ``_decode_image`` and held
+    to PIL's RGBA byte for byte (the 1024^2 files by its SHA-256); each
+    1024^2 file's decode ms, the best of 5. Returns (files, rgba)."""
     import hashlib
-    import tempfile
 
-    import torch
-    from madrona_tpu_torch.assets.importer import import_assets
-    from madrona_tpu_torch.assets.jpeg import decode_jpeg
-    from madrona_tpu_torch.assets.png import decode_png
-    from madrona_tpu_torch.ops import raycast_cuda as rck
-    from madrona_tpu_torch.render import blas as rblas
-    from madrona_tpu_torch.render import kernel as rkernel
-    from madrona_tpu_torch.render.lights import make_lights
-    from madrona_tpu_torch.render.raycast import RenderConfig
+    from madrona_tpu_torch.assets.importer import _decode_image
 
     files, rgba, sha = load_image_goldens()
+    rgba = {k: v for k, v in rgba.items() if k.startswith("fmt_") == formats}
+    sha = {k: v for k, v in sha.items() if k.startswith("fmt_") == formats}
+    if not rgba or not sha:
+        raise AssertionError(f"{label}: no goldens in {IMAGE_GOLDENS}")
     t0 = time.perf_counter()
     for name, want in rgba.items():
-        decode = decode_png if name == "mtl_png16" else decode_jpeg
-        got = decode(files[name])
+        got = _decode_image(files[name], name).data
         if got.shape != want.shape or not np.array_equal(got, want):
             raise AssertionError(f"image {name}: decoded RGBA != PIL's")
     all_s = time.perf_counter() - t0
+    timed_files = []
     for name, (digest, shape) in sha.items():
-        got = decode_jpeg(files[name])
+        got = _decode_image(files[name], name).data
         if (got.shape != shape
                 or hashlib.sha256(got.tobytes()).digest() != digest):
             raise AssertionError(f"image {name}: decoded RGBA != PIL's")
         best = float("inf")
         for _ in range(5):
             t1 = time.perf_counter()
-            decode_jpeg(files[name])
+            _decode_image(files[name], name)
             best = min(best, time.perf_counter() - t1)
-        print(f"image decoders: {len(rgba)} golden files ({all_s:.3f} s) "
-              f"and the {shape[1]} x {shape[0]} 4:2:0 JPEG ({len(files[name])}"
-              f" bytes) equal to PIL's RGBA; that JPEG decodes in "
-              f"{best * 1e3:.2f} ms on the host ({card})")
+        timed_files.append(f"{name} ({len(files[name])} bytes, {shape[1]} x "
+                           f"{shape[0]}) decodes in {best * 1e3:.2f} ms on "
+                           "the host")
+    print(f"{label}: {len(rgba)} golden files ({all_s:.3f} s) and "
+          f"{len(sha)} 1024^2 files equal to PIL's RGBA; "
+          + "; ".join(timed_files) + f" ({card})")
+    return files, rgba
 
+
+def render_imported(label, what, parts, kernels, card, seed, sun):
+    """Imported assets ``parts`` (ImportedAssets, one object each) baked
+    and rendered by render_views_blas at ASSET_W worlds x ASSET_VIEWS
+    views of ASSET_RENDER^2 with a shadow-casting sun: the raycast
+    kernel launched once and no other, its planes equal to its plain
+    version; its device, wrapper and plain ms and its bound on the run's
+    data. Returns (launches a counter, B5's largest difference)."""
+    import torch
+    from madrona_tpu_torch.ops import raycast_cuda as rck
+    from madrona_tpu_torch.render import blas as rblas
+    from madrona_tpu_torch.render import kernel as rkernel
+    from madrona_tpu_torch.render.lights import make_lights
+    from madrona_tpu_torch.render.raycast import RenderConfig
+
+    assets = merge_assets(parts)
+    blas, mats, _ = rblas.bake_assets_blas(assets, tex_size=ASSET_TEX,
+                                           device=DEV)
+    cfg = RenderConfig(width=ASSET_RENDER, height=ASSET_RENDER, t_max=40.0,
+                       shadows=True)
+    scene = asset_scene(len(assets.meshes), ASSET_W, ASSET_VIEWS, DEV,
+                        seed=seed)
+    lights = make_lights(ASSET_W, [{"direction": sun, "cast_shadow": True}],
+                         device=DEV)
+    if not rkernel.kernel_eligible(cfg, blas, lights, 0, scene[0].shape[1]):
+        raise AssertionError(f"{label}: the scene is not the kernel's")
+    for k in kernels:
+        k.launches = 0
+    rgb, dep = rblas.render_views_blas(cfg, blas, *scene, materials=mats,
+                                       lights=lights)
+    torch.cuda.synchronize()
+    launches = [k.launches for k in kernels]
+    expect_launches(f"{label} render_views_blas", kernels, launches,
+                    want_of(kernels, {rck.KERNEL: 1}))
+    hit = float((dep < cfg.t_max).float().mean())
+    if not (bool(torch.isfinite(rgb).all()) and 0.3 < hit < 1.0
+            and tuple(rgb.shape) == (ASSET_W, ASSET_VIEWS, ASSET_RENDER,
+                                     ASSET_RENDER, 3)):
+        raise AssertionError(f"{label} render: hit share {hit}, shape "
+                             f"{tuple(rgb.shape)}")
+    planes, opts, n_rays = rkernel.kernel_inputs(cfg, blas, *scene,
+                                                 materials=mats,
+                                                 lights=lights)
+    worst, out = raycast_compare(f"{label} ({what})", planes, opts)
+    textured = float((planes[1][:, rck.A_TEX] >= 0).float().mean())
+    ms = timed_device(lambda: rck.raytrace(*planes, **opts), 20, 2)
+    wrap_ms = timed(lambda: rck.raytrace(*planes, **opts), 20, 2)
+    plain_ms = timed(lambda: rck.raytrace_plain(*planes, **opts), 1, 1)
+    b_ms, b_by = bound(*raycast_cost(planes, opts, n_rays, out))
+    sizes = [t.data.shape[:2] for t in assets.textures]
+    print(f"{label}: {len(assets.meshes)} meshes ({what}), textures "
+          f"{sizes} resampled to {ASSET_TEX}^2; {ASSET_W} worlds x "
+          f"{ASSET_VIEWS} views of {ASSET_RENDER}^2 through the raycast "
+          f"kernel, hit share {hit:.3f}, textured rows {textured:.3f}; "
+          f"raycast device {ms:.4f} ms, wrapper {wrap_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound on this run's data {b_ms:.5f} ms "
+          f"({b_by}) ({card})")
+    return launches, worst
+
+
+def check_image_assets(kernels, card):
+    """Phase 31b. The JPEG and PNG goldens decoded on the host by the
+    port's decoders, equal to PIL's bytes; the JPEG and 16-bit
+    interlaced PNG textured files imported, baked and rendered through
+    B5. Returns (launches a counter, B5's largest difference from its
+    plain version)."""
+    import tempfile
+
+    from madrona_tpu_torch.assets.importer import import_assets
+
+    files, rgba = check_golden_decodes(False, "image decoders", card)
     with tempfile.TemporaryDirectory() as d:
         paths = write_image_assets(d, files)
         parts = [import_assets(paths[k]) for k in ("obj", "gltf", "glb")]
@@ -3621,48 +3751,33 @@ def check_image_assets(kernels, card):
     for part, w in zip(parts, want):
         if not np.array_equal(part.textures[0].data, w):
             raise AssertionError("image assets: an imported texture != PIL's")
-    assets = merge_assets(parts)
-    blas, mats, _ = rblas.bake_assets_blas(assets, tex_size=ASSET_TEX,
-                                           device=DEV)
-    cfg = RenderConfig(width=ASSET_RENDER, height=ASSET_RENDER, t_max=40.0,
-                       shadows=True)
-    scene = asset_scene(len(assets.meshes), ASSET_W, ASSET_VIEWS, DEV, seed=1)
-    lights = make_lights(ASSET_W, [{"direction": (-0.2, 0.5, -1.0),
-                                    "cast_shadow": True}], device=DEV)
-    if not rkernel.kernel_eligible(cfg, blas, lights, 0, scene[0].shape[1]):
-        raise AssertionError("image assets: the scene is not the kernel's")
-    for k in kernels:
-        k.launches = 0
-    rgb, dep = rblas.render_views_blas(cfg, blas, *scene, materials=mats,
-                                       lights=lights)
-    torch.cuda.synchronize()
-    launches = [k.launches for k in kernels]
-    expect_launches("image assets render_views_blas", kernels, launches,
-                    want_of(kernels, {rck.KERNEL: 1}))
-    hit = float((dep < cfg.t_max).float().mean())
-    if not (bool(torch.isfinite(rgb).all()) and 0.3 < hit < 1.0
-            and tuple(rgb.shape) == (ASSET_W, ASSET_VIEWS, ASSET_RENDER,
-                                     ASSET_RENDER, 3)):
-        raise AssertionError(f"image assets render: hit share {hit}, shape "
-                             f"{tuple(rgb.shape)}")
-    planes, opts, n_rays = rkernel.kernel_inputs(cfg, blas, *scene,
-                                                 materials=mats,
-                                                 lights=lights)
-    worst, out = raycast_compare("JPEG and 16-bit PNG assets", planes, opts)
-    textured = float((planes[1][:, rck.A_TEX] >= 0).float().mean())
-    ms = timed_device(lambda: rck.raytrace(*planes, **opts), 20, 2)
-    wrap_ms = timed(lambda: rck.raytrace(*planes, **opts), 20, 2)
-    plain_ms = timed(lambda: rck.raytrace_plain(*planes, **opts), 1, 1)
-    b_ms, b_by = bound(*raycast_cost(planes, opts, n_rays, out))
-    sizes = [t.data.shape[:2] for t in assets.textures]
-    print(f"image assets: {len(assets.meshes)} meshes (OBJ + MTL with a "
-          f"16-bit Adam7 PNG, .gltf with a progressive JPEG, .glb with a "
-          f"4:2:0 JPEG), textures {sizes} resampled to {ASSET_TEX}^2; {ASSET_W} worlds x {ASSET_VIEWS} "
-          f"views of {ASSET_RENDER}^2 through the raycast kernel, hit share "
-          f"{hit:.3f}, textured rows {textured:.3f}; raycast device "
-          f"{ms:.4f} ms, wrapper {wrap_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound on this run's data {b_ms:.5f} ms ({b_by}) ({card})")
-    return launches, worst
+    return render_imported(
+        "image assets", "OBJ + MTL with a 16-bit Adam7 PNG, .gltf with a "
+        "progressive JPEG, .glb with a 4:2:0 JPEG", parts, kernels, card,
+        1, (-0.2, 0.5, -1.0))
+
+
+def check_format_assets(kernels, card):
+    """Phase 31c. The BMP, TGA, GIF and WebP goldens decoded on the host
+    by the port's decoders, equal to PIL's bytes; the scene textured with
+    them imported, baked and rendered through B5. Returns (launches a
+    counter, B5's largest difference from its plain version)."""
+    import tempfile
+
+    from madrona_tpu_torch.assets.importer import import_assets
+
+    files, rgba = check_golden_decodes(True, "image formats", card)
+    with tempfile.TemporaryDirectory() as d:
+        paths = write_format_assets(d, files)
+        parts = [import_assets(paths[k]) for k in FORMAT_SCENE]
+    for k, part in zip(FORMAT_SCENE, parts):
+        if not np.array_equal(part.textures[0].data,
+                              rgba[FORMAT_TEXTURES[k]]):
+            raise AssertionError(f"image formats: the {k} texture != PIL's")
+    return render_imported(
+        "image formats", "OBJ + MTL with an RLE TGA, .gltf with a GIF, .glb "
+        "with a lossy WebP with ALPH, OBJ + MTL with an RLE8 BMP and with a "
+        "lossless WebP", parts, kernels, card, 2, (0.3, -0.4, -1.0))
 
 
 def check_ppo_pixels(ppo_px, kernels, b_kernels, card):
@@ -5200,6 +5315,15 @@ def main() -> int:
     later["image_assets"], image_err = check_image_assets(all_k, card)
     asset_err = max(asset_err, image_err)
     print(f"phase 31b: {time.perf_counter() - t0:.1f} s ({card})")
+
+    lap("31c")
+    # ---- 31c: BMP, TGA, GIF and WebP textures decoded without PIL,
+    # imported and rendered through B5
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    later["image_formats"], format_err = check_format_assets(all_k, card)
+    asset_err = max(asset_err, format_err)
+    print(f"phase 31c: {time.perf_counter() - t0:.1f} s ({card})")
 
     lap("32")
     # ---- 32: the pixel learner at its defaults on both render tiers

@@ -8,11 +8,16 @@ OBJ library. glTF is parsed in Python (data URIs, ``.bin`` buffers and
 ``.glb``), with its materials and images; an OBJ's ``.mtl`` gives Kd,
 Ns and map_Kd. Images are decoded to the bytes of the JAX package's
 ``PIL.Image.open(...).convert("RGBA")`` without PIL, which the machines
-with the card lack: :func:`_decode_image` picks the decoder by the file's
-magic bytes, :func:`.png.decode_png` (every PNG) or
-:func:`.jpeg.decode_jpeg` (baseline and progressive JPEG; see those
-modules for the variants). Other formats (TGA, BMP, GIF, WebP, which an
-MTL ``map_Kd`` may name but glTF does not allow) raise ``ValueError``.
+with the card lack: :func:`_decode_image` tries the formats in Pillow's
+order by their magic bytes and takes PNG (:func:`.png.decode_png`), JPEG
+(:func:`.jpeg.decode_jpeg`), BMP and DIB (:func:`.bmp.decode_bmp`), GIF's
+first frame (:func:`.gif.decode_gif`), WebP's first frame
+(:func:`.webp.decode_webp`) and, where no other format's magic bytes
+match, TGA by its header checks (:func:`.tga.decode_tga`); see those
+modules for the variants each refuses. The other formats Pillow opens
+(DDS, TIFF, PPM, ICO/CUR, PSD, QOI, SGI, PCX, AVIF, JPEG 2000, ...) raise
+``ValueError`` naming the format as Pillow identifies it; a TGA header
+that one of their weak tests (CUR's, PCX's) also takes is read as TGA.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from typing import List
 
 import numpy as np
 
+from . import bmp, gif, tga, webp
 from .jpeg import MAGIC as JPEG_MAGIC
 from .jpeg import decode_jpeg
 from .png import SIGNATURE as PNG_SIGNATURE
@@ -76,20 +82,84 @@ class ImportedAssets:
     textures: List[ImportedTexture]
 
 
-_REFUSED = ((b"GIF87a", "GIF"), (b"GIF89a", "GIF"), (b"BM", "BMP"),
-            (b"RIFF", "WebP"))
+def _u32be(d, o=0):
+    return int.from_bytes(d[o:o + 4], "big")
+
+
+# The formats Pillow 12.1.0 opens that the port does not decode, by
+# Pillow's order, each with the test of its plugin's _accept (a plugin
+# without one, by the test its _open makes first).
+_REFUSED = (
+    ("AVIF", lambda d: d[4:8] == b"ftyp"
+     and d[8:12] in (b"avif", b"avis", b"mif1", b"msf1")),
+    ("BLP", lambda d: d[:4] in (b"BLP1", b"BLP2")),
+    ("BUFR", lambda d: d[:4] in (b"BUFR", b"ZCZC")),
+    ("DCX", lambda d: d[:4] == b"\xb1\x68\xde\x3a"),
+    ("DDS", lambda d: d[:4] == b"DDS "),
+    ("EPS", lambda d: d[:4] == b"%!PS" or d[:4] == b"\xc5\xd0\xd3\xc6"),
+    ("FITS", lambda d: d[:6] == b"SIMPLE"),
+    ("FTEX", lambda d: d[:4] == b"FTEX"),
+    ("GRIB", lambda d: d[:4] == b"GRIB" and d[7:8] == b"\x01"),
+    ("HDF5", lambda d: d[:8] == b"\x89HDF\r\n\x1a\n"),
+    ("JPEG2000", lambda d: d[:4] == b"\xff\x4f\xff\x51"
+     or d[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n"),
+    ("ICNS", lambda d: d[:4] == b"icns"),
+    ("IM", lambda d: d[:11] == b"Image type:"),
+    ("MPEG", lambda d: d[:4] == b"\x00\x00\x01\xb3"),
+    ("TIFF", lambda d: d[:4] in (b"MM\x00\x2a", b"II\x2a\x00",
+                                 b"MM\x2a\x00", b"II\x00\x2a",
+                                 b"MM\x00\x2b", b"II\x2b\x00")),
+    ("MSP", lambda d: d[:4] in (b"DanM", b"LinS")),
+    ("PIXAR", lambda d: d[:4] == b"\x80\xe8\x00\x00"),
+    ("PSD", lambda d: d[:4] == b"8BPS"),
+    ("QOI", lambda d: d[:4] == b"qoif"),
+    ("SUN", lambda d: _u32be(d) == 0x59A66A95),
+    ("XPM", lambda d: d[:9] == b"/* XPM */"),
+    ("XVTHUMB", lambda d: d[:6] == b"P7 332"),
+    ("XBM", lambda d: d.lstrip()[:7] == b"#define"),
+    ("PPM", lambda d: d[:1] == b"P" and d[1:2] != b""
+     and d[1:2] in b"0123456fy"),
+    ("SGI", lambda d: d[:2] == b"\x01\xda"),
+    ("WMF", lambda d: d[:6] == b"\xd7\xcd\xc6\x9a\x00\x00"
+     or d[:4] == b"\x01\x00\x00\x00"),
+)
+# weak tests that a TGA header can pass: tried after TGA's
+_REFUSED_AFTER_TGA = (
+    ("ICO", lambda d: d[:4] == b"\x00\x00\x01\x00"),
+    ("CUR", lambda d: d[:4] == b"\x00\x00\x02\x00"),
+    ("PCX", lambda d: d[:1] == b"\x0a" and d[1:2] != b""
+     and d[1] in (0, 2, 3, 5)),
+)
+_DECODED = "PNG, JPEG, BMP, TGA, GIF and WebP are"
+
+
+def _refused(data, name, table):
+    kind = next((k for k, test in table if test(data)), None)
+    if kind is not None:
+        raise ValueError(f"texture {name!r}: {kind} images are not decoded "
+                         f"({_DECODED})")
 
 
 def _decode_image(data: bytes, name: str = "") -> ImportedTexture:
     """A texture of an image file's bytes, decoded by its magic bytes."""
-    if data.startswith(PNG_SIGNATURE):
-        return ImportedTexture(name, decode_png(data))
+    data = bytes(data)
+    if data.startswith(bmp.MAGIC) or bmp.dib_accept(data):
+        return ImportedTexture(name, bmp.decode_bmp(data))
+    if data.startswith(gif.MAGICS):
+        return ImportedTexture(name, gif.decode_gif(data))
     if data.startswith(JPEG_MAGIC):
         return ImportedTexture(name, decode_jpeg(data))
-    kind = next((k for magic, k in _REFUSED if data.startswith(magic)),
-                "TGA or another format without magic bytes")
-    raise ValueError(f"texture {name!r}: {kind} images are not decoded "
-                     "(PNG and JPEG are)")
+    if data.startswith(PNG_SIGNATURE):
+        return ImportedTexture(name, decode_png(data))
+    if webp.accept(data):
+        return ImportedTexture(name, webp.decode_webp(data))
+    _refused(data, name, _REFUSED)
+    if tga.accept(data):
+        return ImportedTexture(name, tga.decode_tga(data))
+    _refused(data, name, _REFUSED_AFTER_TGA)
+    raise ValueError(f"texture {name!r}: not an image file Pillow opens "
+                     f"(no magic bytes it knows, not a TGA header; "
+                     f"{_DECODED} decoded)")
 
 
 def load_obj(path: str) -> ImportedMesh:
