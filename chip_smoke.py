@@ -261,6 +261,22 @@ Phases, each printing its own lines:
      64 x 64 with a shadow-casting sun: the raycast kernel launched once
      and no other, its planes equal to its plain version; B5's device,
      wrapper and plain ms and its bound on the run's data;
+ 31d. the DDS, PBM/PGM/PPM/PFM, QOI and ICO/CUR decoders without PIL
+     (assets/dds.py over native/bcn_decode.cpp, ppm.py, qoi.py over
+     native/qoi_decode.cpp, ico.py): every fmt2_* file of
+     tests/goldens/torch_images.npz decoded on the host equal to PIL's
+     RGBA byte for byte; a 1024 x 1024 BC7 and a 1024 x 1024 BC1 DDS of
+     random blocks built here (big_dds_files, np.random.default_rng(19)),
+     each held to the SHA-256 of its bytes and of PIL's RGBA, their decode
+     ms; an OBJ + MTL with a BC1 DDS with punch-through alpha, a .glb cube
+     with a BC7 DDS with a mip chain in its binary chunk, a .gltf quad
+     with a QOI data URI, an OBJ + MTL with a 30 x 18 BC3 DDS (partial
+     blocks) and an OBJ + MTL with a binary P6 PPM at maxval 1023
+     imported (textures equal to the goldens), bake_assets_blas, and the
+     scene rendered by render_views_blas at 1024 worlds x 4 views of 64 x
+     64 with a shadow-casting sun: the raycast kernel launched once and
+     no other, its planes equal to its plain version; B5's device,
+     wrapper and plain ms and its bound on the run's data;
  32. examples/torch_train_ppo_pixels.py at its defaults (256 worlds, 16 x
      16 RGBD, horizon 16, two epochs): 5 updates on the dense tier
      (tlas_max_instances=8) and 2 on the BLAS tier; B1, B2, B3 and B5
@@ -277,8 +293,8 @@ Phases, each printing its own lines:
      state) and resumed in a fresh make_train for 2 more, bit-identical
      to 4 straight updates; no kernel launched by the learner.
      The JSON line's rows carry "launches_by_path": each kernel's
-     launches on the paths of phases 27-29, 31, 31b, 31c and 32, B6's and B7's
-     from the record kernel's tier counts.
+     launches on the paths of phases 27-29, 31, 31b, 31c, 31d and 32,
+     B6's and B7's from the record kernel's tier counts.
  34. tracing and debug checks (utils/tracing.py, utils/debug.py) on
      Escape Room at 4096 worlds: 5 steps under profile_trace, each
      node's device ms ("step.<node>" spans), B1-B3 launched under
@@ -3426,6 +3442,77 @@ def write_format_assets(d, files):
     }
 
 
+def dds_bytes(w, h, body, *, fourcc=b"", dxgi=None, pfflags=None,
+              bitcount=0, masks=(0, 0, 0, 0), mips=0):
+    """A DDS file of ``w`` x ``h``: the 124-byte header (pixel format
+    ``fourcc``, or "DX10" and its 20-byte header where ``dxgi`` is given;
+    ``pfflags`` default to FOURCC where there is one) before ``body``."""
+    import struct
+
+    if dxgi is not None:
+        fourcc = b"DX10"
+    if pfflags is None:
+        pfflags = 0x4 if fourcc else 0
+    code = struct.unpack("<I", fourcc)[0] if fourcc else 0
+    head = (struct.pack("<7I", 124, 0x1007 | (0x20000 if mips else 0), h, w,
+                        0, 0, mips) + bytes(44)
+            + struct.pack("<4I", 32, pfflags, code, bitcount)
+            + struct.pack("<4I", *masks)
+            + struct.pack("<5I", 0x1000 | (0x400008 if mips else 0), 0, 0,
+                          0, 0))
+    if dxgi is not None:
+        head += struct.pack("<5I", dxgi, 3, 0, 1, 0)
+    return b"DDS " + head + body
+
+
+# phase 31d's 1024^2 files: name -> (DXGI format, bytes a 4 x 4 block)
+BIG_DDS = {"fmt2_big_bc7": (98, 16), "fmt2_big_bc1": (71, 8)}
+
+
+def big_dds_files(side=1024):
+    """{name: DDS bytes} of BIG_DDS: random blocks of
+    np.random.default_rng(19) behind a DX10 header (too random to store:
+    the goldens keep the SHA-256 of their bytes and of PIL's RGBA)."""
+    rng = np.random.default_rng(19)
+    return {name: dds_bytes(side, side, rng.integers(
+        0, 256, (side // 4) ** 2 * block, dtype=np.uint8).tobytes(),
+        dxgi=dxgi) for name, (dxgi, block) in BIG_DDS.items()}
+
+
+FORMAT2_SCENE = ("bc1_obj", "bc7_glb", "qoi_gltf", "bc3_obj", "ppm_obj")
+FORMAT2_TEXTURES = {"bc1_obj": "fmt2_dds_bc1_alpha",
+                    "bc7_glb": "fmt2_dds_bc7_mips", "qoi_gltf": "fmt2_qoi",
+                    "bc3_obj": "fmt2_dds_bc3_30x18",
+                    "ppm_obj": "fmt2_ppm_1023"}
+
+
+def write_format2_assets(d, files):
+    """Phase 31d's files in directory ``d``, textured with the golden
+    files ``files[FORMAT2_TEXTURES[k]]``: a ground grid OBJ + MTL with a
+    BC1 DDS with punch-through alpha, a .glb cube with a BC7 DDS with a
+    mip chain in its binary chunk, a .gltf quad with a QOI data URI, and
+    cube OBJs with a 30 x 18 BC3 DDS and a binary P6 PPM at maxval 1023.
+    Returns {FORMAT2_SCENE name: path}."""
+    tex = {k: files[v] for k, v in FORMAT2_TEXTURES.items()}
+    pos, tris, _ = _grid_mesh(10, 4.0)
+    cpos, ctris, _ = _cube()
+    return {
+        "bc1_obj": _write_obj(os.path.join(d, "floor.obj"), pos, tris,
+                              "floor", "floor.dds", tex["bc1_obj"],
+                              "0.9 0.8 0.9"),
+        "bc7_glb": write_glb_cube(os.path.join(d, "chest.glb"), "chest",
+                                  tex["bc7_glb"], "image/vnd-ms.dds"),
+        "qoi_gltf": write_gltf_quad(os.path.join(d, "banner.gltf"),
+                                    "banner", tex["qoi_gltf"], "image/qoi"),
+        "bc3_obj": _write_obj(os.path.join(d, "pillar.obj"), cpos * 0.5,
+                              ctris, "pillar", "pillar.dds", tex["bc3_obj"],
+                              "1 1 1"),
+        "ppm_obj": _write_obj(os.path.join(d, "block.obj"), cpos * 0.4,
+                              ctris, "block", "block.ppm", tex["ppm_obj"],
+                              "0.8 1 0.9"),
+    }
+
+
 def merge_assets(parts):
     """One ImportedAssets of several: material and texture indices
     offset."""
@@ -3633,21 +3720,36 @@ def check_assets(kernels, card):
     return launches, (planes, opts, n_rays), worst
 
 
-def check_golden_decodes(formats, label, card):
-    """The goldens of tests/goldens/torch_images.npz whose names start
-    with ``fmt_`` (``formats``) or do not (the JPEGs and the PNG of phase
-    31b), decoded on the host by the port's ``_decode_image`` and held
-    to PIL's RGBA byte for byte (the 1024^2 files by its SHA-256); each
-    1024^2 file's decode ms, the best of 5. Returns (files, rgba)."""
+def golden_group(name):
+    """The phase whose goldens hold ``name``: "fmt2_" (31d), "fmt_" (31c)
+    or "" (31b)."""
+    return next((p for p in ("fmt2_", "fmt_") if name.startswith(p)), "")
+
+
+def check_golden_decodes(group, label, card, built=None):
+    """The goldens of tests/goldens/torch_images.npz of golden_group
+    ``group``, decoded on the host by the port's ``_decode_image`` and
+    held to PIL's RGBA byte for byte (the 1024^2 files by its SHA-256);
+    ``built``: {name: bytes} of the 1024^2 files this script builds, each
+    held first to the SHA-256 of its bytes in the goldens. Each 1024^2
+    file's decode ms, the best of 5. Returns (files, rgba)."""
     import hashlib
 
     from madrona_tpu_torch.assets.importer import _decode_image
 
     files, rgba, sha = load_image_goldens()
-    rgba = {k: v for k, v in rgba.items() if k.startswith("fmt_") == formats}
-    sha = {k: v for k, v in sha.items() if k.startswith("fmt_") == formats}
+    rgba = {k: v for k, v in rgba.items() if golden_group(k) == group}
+    sha = {k: v for k, v in sha.items() if golden_group(k) == group}
     if not rgba or not sha:
         raise AssertionError(f"{label}: no goldens in {IMAGE_GOLDENS}")
+    if built:
+        with np.load(IMAGE_GOLDENS) as z:
+            for name, data in built.items():
+                if (hashlib.sha256(data).digest()
+                        != z[name + ".file_sha256"].tobytes()):
+                    raise AssertionError(f"image {name}: the built file's "
+                                         "SHA-256 != the golden's")
+        files.update(built)
     t0 = time.perf_counter()
     for name, want in rgba.items():
         got = _decode_image(files[name], name).data
@@ -3743,7 +3845,7 @@ def check_image_assets(kernels, card):
 
     from madrona_tpu_torch.assets.importer import import_assets
 
-    files, rgba = check_golden_decodes(False, "image decoders", card)
+    files, rgba = check_golden_decodes("", "image decoders", card)
     with tempfile.TemporaryDirectory() as d:
         paths = write_image_assets(d, files)
         parts = [import_assets(paths[k]) for k in ("obj", "gltf", "glb")]
@@ -3766,7 +3868,7 @@ def check_format_assets(kernels, card):
 
     from madrona_tpu_torch.assets.importer import import_assets
 
-    files, rgba = check_golden_decodes(True, "image formats", card)
+    files, rgba = check_golden_decodes("fmt_", "image formats", card)
     with tempfile.TemporaryDirectory() as d:
         paths = write_format_assets(d, files)
         parts = [import_assets(paths[k]) for k in FORMAT_SCENE]
@@ -3778,6 +3880,33 @@ def check_format_assets(kernels, card):
         "image formats", "OBJ + MTL with an RLE TGA, .gltf with a GIF, .glb "
         "with a lossy WebP with ALPH, OBJ + MTL with an RLE8 BMP and with a "
         "lossless WebP", parts, kernels, card, 2, (0.3, -0.4, -1.0))
+
+
+def check_format2_assets(kernels, card):
+    """Phase 31d. The DDS, PBM/PGM/PPM/PFM, QOI and ICO/CUR goldens and
+    the two 1024^2 DDS files decoded on the host by the port's decoders,
+    equal to PIL's bytes; the scene textured with them imported, baked
+    and rendered through B5. Returns (launches a counter, B5's largest
+    difference from its plain version)."""
+    import tempfile
+
+    from madrona_tpu_torch.assets.importer import import_assets
+
+    files, rgba = check_golden_decodes("fmt2_", "image formats 2", card,
+                                       big_dds_files())
+    with tempfile.TemporaryDirectory() as d:
+        paths = write_format2_assets(d, files)
+        parts = [import_assets(paths[k]) for k in FORMAT2_SCENE]
+    for k, part in zip(FORMAT2_SCENE, parts):
+        if not np.array_equal(part.textures[0].data,
+                              rgba[FORMAT2_TEXTURES[k]]):
+            raise AssertionError(f"image formats 2: the {k} texture != "
+                                 "PIL's")
+    return render_imported(
+        "image formats 2", "OBJ + MTL with a BC1 DDS with punch-through "
+        "alpha, .glb with a BC7 DDS with mips, .gltf with a QOI, OBJ + MTL "
+        "with a 30 x 18 BC3 DDS and with a P6 PPM at maxval 1023", parts,
+        kernels, card, 3, (-0.4, 0.3, -1.0))
 
 
 def check_ppo_pixels(ppo_px, kernels, b_kernels, card):
@@ -5324,6 +5453,15 @@ def main() -> int:
     later["image_formats"], format_err = check_format_assets(all_k, card)
     asset_err = max(asset_err, format_err)
     print(f"phase 31c: {time.perf_counter() - t0:.1f} s ({card})")
+
+    lap("31d")
+    # ---- 31d: DDS, PBM/PGM/PPM/PFM, QOI and ICO/CUR textures decoded
+    # without PIL, imported and rendered through B5
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    later["image_formats_2"], format2_err = check_format2_assets(all_k, card)
+    asset_err = max(asset_err, format2_err)
+    print(f"phase 31d: {time.perf_counter() - t0:.1f} s ({card})")
 
     lap("32")
     # ---- 32: the pixel learner at its defaults on both render tiers

@@ -164,11 +164,21 @@ def decode_bmp(data: bytes) -> np.ndarray:
     if data.startswith(MAGIC):
         if len(data) < 18:
             raise ValueError("BMP: the file header is cut short")
-        offset, pos = _u32(data, 10), 14
-    elif dib_accept(data):
-        offset, pos = 0, 0
-    else:
-        raise ValueError("not a BMP file")
+        return decode_dib(data, 14, _u32(data, 10))[0]
+    if dib_accept(data):
+        return decode_dib(data, 0)[0]
+    raise ValueError("not a BMP file")
+
+
+def decode_dib(data: bytes, pos: int, offset: int = 0,
+               halve: bool = False, raw_alpha: bool = False):
+    """RGBA [H, W, 4] uint8 of the bitmap whose info header starts at
+    ``pos`` of ``data``, and where its pixel data starts: at ``offset``,
+    or (where it is 0) after the header, its masks and its palette.
+    ``halve``: the height is half the header's (rounded down), as an icon
+    or cursor's bitmap is read (the second half is its AND mask);
+    ``raw_alpha``: uncompressed 32-bit pixels keep their fourth byte as
+    alpha (Pillow does so for a cursor whose bitmap starts at byte 22)."""
     header_size = _u32(data, pos)
     head = data[pos + 4:pos + header_size]
     if len(head) < header_size - 4:
@@ -216,6 +226,8 @@ def decode_bmp(data: bytes) -> np.ndarray:
                              f"({bits} bits, masks {masks})")
     elif compression in (1, 2):
         rle = True
+    elif compression == 0 and bits == 32 and raw_alpha:
+        raw, mode = "BGRA", "RGBA"
     elif compression != 0:
         raise ValueError(f"BMP: unsupported compression ({compression}"
                          f"{', JPEG' if compression == 4 else ''}"
@@ -241,6 +253,10 @@ def decode_bmp(data: bytes) -> np.ndarray:
     start = offset or pos
     if w <= 0 or h <= 0 or w * h > 1 << 28:
         raise ValueError(f"BMP: unsupported size {w} x {h}")
+    if halve:
+        h //= 2
+        if not h:
+            raise ValueError("BMP: an icon bitmap of one row")
     if rle:
         if mode not in ("P", "L"):
             raise ValueError(f"BMP: RLE at {bits} bits per pixel")
@@ -260,7 +276,7 @@ def decode_bmp(data: bytes) -> np.ndarray:
             rows = rows[::-1]
         px = _unpack(np.ascontiguousarray(rows), raw, w)
     if palette is not None:
-        return palette[px[..., 0]]
+        return palette[px[..., 0]], start
     out = np.empty((h, w, 4), np.uint8)
     if px.shape[-1] == 1:
         out[..., :3] = px
@@ -268,4 +284,4 @@ def decode_bmp(data: bytes) -> np.ndarray:
     else:
         out[..., :3] = px[..., :3]
         out[..., 3] = px[..., 3] if px.shape[-1] == 4 else 255
-    return out
+    return out, start

@@ -12,12 +12,16 @@ with the card lack: :func:`_decode_image` tries the formats in Pillow's
 order by their magic bytes and takes PNG (:func:`.png.decode_png`), JPEG
 (:func:`.jpeg.decode_jpeg`), BMP and DIB (:func:`.bmp.decode_bmp`), GIF's
 first frame (:func:`.gif.decode_gif`), WebP's first frame
-(:func:`.webp.decode_webp`) and, where no other format's magic bytes
-match, TGA by its header checks (:func:`.tga.decode_tga`); see those
-modules for the variants each refuses. The other formats Pillow opens
-(DDS, TIFF, PPM, ICO/CUR, PSD, QOI, SGI, PCX, AVIF, JPEG 2000, ...) raise
-``ValueError`` naming the format as Pillow identifies it; a TGA header
-that one of their weak tests (CUR's, PCX's) also takes is read as TGA.
+(:func:`.webp.decode_webp`), DDS's first surface (:func:`.dds.decode_dds`),
+PBM, PGM, PPM and PFM (:func:`.ppm.decode_ppm`), QOI
+(:func:`.qoi.decode_qoi`), ICO and CUR (:func:`.ico.decode_ico`,
+:func:`.ico.decode_cur`; tried, as Pillow tries them, before TGA, where a
+whole directory lets Pillow take the file) and, where no other format
+takes the file, TGA by its header checks (:func:`.tga.decode_tga`); see
+those modules for the variants each refuses. The other formats Pillow
+opens (TIFF, PSD, SGI, PCX, AVIF, JPEG 2000, ...) raise ``ValueError``
+naming the format as Pillow identifies it; a TGA header that PCX's weak
+test also takes is read as TGA.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from typing import List
 
 import numpy as np
 
-from . import bmp, gif, tga, webp
+from . import bmp, dds, gif, ico, ppm, qoi, tga, webp
 from .jpeg import MAGIC as JPEG_MAGIC
 from .jpeg import decode_jpeg
 from .png import SIGNATURE as PNG_SIGNATURE
@@ -86,58 +90,65 @@ def _u32be(d, o=0):
     return int.from_bytes(d[o:o + 4], "big")
 
 
-# The formats Pillow 12.1.0 opens that the port does not decode, by
+# The formats Pillow 12.1.0 opens after BMP, GIF, JPEG, PNG and WebP, by
 # Pillow's order, each with the test of its plugin's _accept (a plugin
-# without one, by the test its _open makes first).
-_REFUSED = (
+# without one, by the test its _open makes first) and the port's decoder,
+# or None where the port refuses the format.
+_FORMATS = (
     ("AVIF", lambda d: d[4:8] == b"ftyp"
-     and d[8:12] in (b"avif", b"avis", b"mif1", b"msf1")),
-    ("BLP", lambda d: d[:4] in (b"BLP1", b"BLP2")),
-    ("BUFR", lambda d: d[:4] in (b"BUFR", b"ZCZC")),
-    ("DCX", lambda d: d[:4] == b"\xb1\x68\xde\x3a"),
-    ("DDS", lambda d: d[:4] == b"DDS "),
-    ("EPS", lambda d: d[:4] == b"%!PS" or d[:4] == b"\xc5\xd0\xd3\xc6"),
-    ("FITS", lambda d: d[:6] == b"SIMPLE"),
-    ("FTEX", lambda d: d[:4] == b"FTEX"),
-    ("GRIB", lambda d: d[:4] == b"GRIB" and d[7:8] == b"\x01"),
-    ("HDF5", lambda d: d[:8] == b"\x89HDF\r\n\x1a\n"),
+     and d[8:12] in (b"avif", b"avis", b"mif1", b"msf1"), None),
+    ("BLP", lambda d: d[:4] in (b"BLP1", b"BLP2"), None),
+    ("BUFR", lambda d: d[:4] in (b"BUFR", b"ZCZC"), None),
+    ("CUR", ico.accept_cur, ico.decode_cur),
+    ("DCX", lambda d: d[:4] == b"\xb1\x68\xde\x3a", None),
+    ("DDS", lambda d: d[:4] == dds.MAGIC, dds.decode_dds),
+    ("EPS", lambda d: d[:4] == b"%!PS" or d[:4] == b"\xc5\xd0\xd3\xc6", None),
+    ("FITS", lambda d: d[:6] == b"SIMPLE", None),
+    ("FTEX", lambda d: d[:4] == b"FTEX", None),
+    ("GRIB", lambda d: d[:4] == b"GRIB" and d[7:8] == b"\x01", None),
+    ("HDF5", lambda d: d[:8] == b"\x89HDF\r\n\x1a\n", None),
     ("JPEG2000", lambda d: d[:4] == b"\xff\x4f\xff\x51"
-     or d[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n"),
-    ("ICNS", lambda d: d[:4] == b"icns"),
-    ("IM", lambda d: d[:11] == b"Image type:"),
-    ("MPEG", lambda d: d[:4] == b"\x00\x00\x01\xb3"),
+     or d[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n", None),
+    ("ICNS", lambda d: d[:4] == b"icns", None),
+    ("ICO", ico.accept_ico, ico.decode_ico),
+    ("IM", lambda d: d[:11] == b"Image type:", None),
+    ("MPEG", lambda d: d[:4] == b"\x00\x00\x01\xb3", None),
     ("TIFF", lambda d: d[:4] in (b"MM\x00\x2a", b"II\x2a\x00",
                                  b"MM\x2a\x00", b"II\x00\x2a",
-                                 b"MM\x00\x2b", b"II\x2b\x00")),
-    ("MSP", lambda d: d[:4] in (b"DanM", b"LinS")),
-    ("PIXAR", lambda d: d[:4] == b"\x80\xe8\x00\x00"),
-    ("PSD", lambda d: d[:4] == b"8BPS"),
-    ("QOI", lambda d: d[:4] == b"qoif"),
-    ("SUN", lambda d: _u32be(d) == 0x59A66A95),
-    ("XPM", lambda d: d[:9] == b"/* XPM */"),
-    ("XVTHUMB", lambda d: d[:6] == b"P7 332"),
-    ("XBM", lambda d: d.lstrip()[:7] == b"#define"),
-    ("PPM", lambda d: d[:1] == b"P" and d[1:2] != b""
-     and d[1:2] in b"0123456fy"),
-    ("SGI", lambda d: d[:2] == b"\x01\xda"),
+                                 b"MM\x00\x2b", b"II\x2b\x00"), None),
+    ("MSP", lambda d: d[:4] in (b"DanM", b"LinS"), None),
+    ("PIXAR", lambda d: d[:4] == b"\x80\xe8\x00\x00", None),
+    ("PSD", lambda d: d[:4] == b"8BPS", None),
+    ("QOI", lambda d: d[:4] == qoi.MAGIC, qoi.decode_qoi),
+    ("SUN", lambda d: _u32be(d) == 0x59A66A95, None),
+    ("XPM", lambda d: d[:9] == b"/* XPM */", None),
+    ("XVTHUMB", lambda d: d[:6] == b"P7 332", None),
+    ("XBM", lambda d: d.lstrip()[:7] == b"#define", None),
+    ("PPM", ppm.accept, ppm.decode_ppm),
+    ("SGI", lambda d: d[:2] == b"\x01\xda", None),
     ("WMF", lambda d: d[:6] == b"\xd7\xcd\xc6\x9a\x00\x00"
-     or d[:4] == b"\x01\x00\x00\x00"),
+     or d[:4] == b"\x01\x00\x00\x00", None),
 )
-# weak tests that a TGA header can pass: tried after TGA's
-_REFUSED_AFTER_TGA = (
-    ("ICO", lambda d: d[:4] == b"\x00\x00\x01\x00"),
-    ("CUR", lambda d: d[:4] == b"\x00\x00\x02\x00"),
+# a weak test that a TGA header can pass: tried after TGA's
+_FORMATS_AFTER_TGA = (
     ("PCX", lambda d: d[:1] == b"\x0a" and d[1:2] != b""
-     and d[1] in (0, 2, 3, 5)),
+     and d[1] in (0, 2, 3, 5), None),
 )
-_DECODED = "PNG, JPEG, BMP, TGA, GIF and WebP are"
+_DECODED = ("PNG, JPEG, BMP, TGA, GIF, WebP, DDS, PBM/PGM/PPM/PFM, QOI, "
+            "ICO and CUR are")
 
 
-def _refused(data, name, table):
-    kind = next((k for k, test in table if test(data)), None)
-    if kind is not None:
-        raise ValueError(f"texture {name!r}: {kind} images are not decoded "
-                         f"({_DECODED})")
+def _decode_as(data, name, table):
+    """The texture of the first format of ``table`` whose test takes
+    ``data`` (a ValueError naming it where the port refuses it), or None
+    where none does."""
+    for kind, test, decode in table:
+        if test(data):
+            if decode is None:
+                raise ValueError(f"texture {name!r}: {kind} images are not "
+                                 f"decoded ({_DECODED})")
+            return ImportedTexture(name, decode(data))
+    return None
 
 
 def _decode_image(data: bytes, name: str = "") -> ImportedTexture:
@@ -153,13 +164,16 @@ def _decode_image(data: bytes, name: str = "") -> ImportedTexture:
         return ImportedTexture(name, decode_png(data))
     if webp.accept(data):
         return ImportedTexture(name, webp.decode_webp(data))
-    _refused(data, name, _REFUSED)
-    if tga.accept(data):
-        return ImportedTexture(name, tga.decode_tga(data))
-    _refused(data, name, _REFUSED_AFTER_TGA)
-    raise ValueError(f"texture {name!r}: not an image file Pillow opens "
-                     f"(no magic bytes it knows, not a TGA header; "
-                     f"{_DECODED} decoded)")
+    tex = _decode_as(data, name, _FORMATS)
+    if tex is None and tga.accept(data):
+        tex = ImportedTexture(name, tga.decode_tga(data))
+    if tex is None:
+        tex = _decode_as(data, name, _FORMATS_AFTER_TGA)
+    if tex is None:
+        raise ValueError(f"texture {name!r}: not an image file Pillow opens "
+                         f"(no magic bytes it knows, not a TGA header; "
+                         f"{_DECODED} decoded)")
+    return tex
 
 
 def load_obj(path: str) -> ImportedMesh:

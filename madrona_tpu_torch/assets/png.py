@@ -114,8 +114,10 @@ def _samples(raw: bytes, h: int, w: int, n: int, depth: int) -> np.ndarray:
         -1, dtype=np.uint8)[..., None]
 
 
-def decode_png(data: bytes) -> np.ndarray:
-    """[H, W, 4] uint8 RGBA of a PNG file's bytes (see the module doc)."""
+def decode_png(data: bytes, transparency: bool = True) -> np.ndarray:
+    """[H, W, 4] uint8 RGBA of a PNG file's bytes (see the module doc);
+    ``transparency=False`` ignores the ``tRNS`` chunk (as an icon's PNG
+    frame is read)."""
     if not data.startswith(SIGNATURE):
         raise ValueError("not a PNG file (no PNG signature)")
     header, palette, trns, idat = None, None, None, []
@@ -124,7 +126,7 @@ def decode_png(data: bytes) -> np.ndarray:
             header = struct.unpack(">IIBBBBB", body)
         elif kind == b"PLTE":
             palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
-        elif kind == b"tRNS":
+        elif kind == b"tRNS" and transparency:
             trns = body
         elif kind == b"IDAT":
             idat.append(body)

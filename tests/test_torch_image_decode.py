@@ -347,10 +347,13 @@ def golden_arrays():
     """The npz's arrays: each file's bytes (``<name>.file``) and PIL's
     RGBA (``<name>.rgba``), or for the 1024 x 1024 file the SHA-256 of
     PIL's RGBA (``big.sha256``); and test_torch_image_formats.py's
-    (BMP, TGA, GIF and WebP, named ``fmt_*``)."""
+    (BMP, TGA, GIF and WebP, named ``fmt_*``) and test_torch_image_dds.py's
+    (DDS, PBM/PGM/PPM/PFM, QOI, ICO and CUR, named ``fmt2_*``)."""
+    import test_torch_image_dds
     import test_torch_image_formats
 
     out = test_torch_image_formats.golden_arrays()
+    out.update(test_torch_image_dds.golden_arrays())
     for name, data in golden_files().items():
         out[f"{name}.file"] = np.frombuffer(data, np.uint8)
         rgba = pil_rgba(data)
@@ -526,9 +529,9 @@ def test_png_16bit_and_interlaced_match_pil():
 
 def test_goldens_match_pil():
     """tests/goldens/torch_images.npz is what this module writes today:
-    the same files (PIL's encoders, this module's and
-    test_torch_image_formats.py's), PIL's RGBA of each (the 1024^2
-    files' SHA-256), and under 1 MB."""
+    the same files (PIL's encoders, this module's,
+    test_torch_image_formats.py's and test_torch_image_dds.py's), PIL's
+    RGBA of each (the 1024^2 files' SHA-256), and under 1 MB."""
     assert os.path.getsize(GOLDENS) < 1 << 20
     with np.load(GOLDENS) as z:
         stored = {k: z[k] for k in z.files}
@@ -553,17 +556,17 @@ def test_decoder_builds_from_source(tmp_path, monkeypatch):
 
 
 def test_importer_dispatch():
-    """_decode_image takes PNG, JPEG, GIF, BMP, WebP and TGA by their
-    magic bytes (TGA by its header), as PIL would decode them; formats PIL
-    opens that the port does not decode (DDS, TIFF) raise ValueError
-    naming the format."""
+    """_decode_image takes PNG, JPEG, GIF, BMP, WebP, DDS and TGA by their
+    magic bytes (TGA by its header), as PIL would decode them; a format PIL
+    opens that the port does not decode (TIFF) raises ValueError naming
+    the format."""
     png = chip_smoke.png_bytes(np.arange(12, dtype=np.uint16).reshape(3, 4)
                                * 5000, depth=16, interlace=True)
     jpg = pil_jpeg(seeded_image(5, 6, "smooth", 0), quality=70,
                    progressive=True)
     img = Image.fromarray(seeded_image(4, 4, "noise", 0))
     files = [png, jpg]
-    for fmt in ("GIF", "BMP", "WEBP", "TGA"):
+    for fmt in ("GIF", "BMP", "WEBP", "DDS", "TGA"):
         buf = io.BytesIO()
         img.save(buf, fmt)
         files.append(buf.getvalue())
@@ -571,7 +574,7 @@ def test_importer_dispatch():
         assert pil_rgba(data).shape == (4, 4, 4) or data in (png, jpg)
         np.testing.assert_array_equal(
             importer._decode_image(data, "t").data, pil_rgba(data))
-    for fmt in ("DDS", "TIFF"):
+    for fmt in ("TIFF",):
         buf = io.BytesIO()
         img.save(buf, fmt)
         with pytest.raises(ValueError, match=fmt):

@@ -1136,7 +1136,8 @@ def test_webp_matches_pil():
 def test_refused_variants_name_themselves():
     """Variants Pillow refuses raise ValueError naming them in the port
     too; formats Pillow opens that the port does not decode raise
-    ValueError naming the format as Pillow identifies it."""
+    ValueError naming the format as Pillow identifies it (PIL's DDS, PPM,
+    ICO and QOI files, which the port now decodes, equal PIL's RGBA)."""
     rs = np.random.RandomState(6)
     idx = rs.randint(0, 4, (3, 5))
     bad = {
@@ -1189,6 +1190,10 @@ def test_refused_variants_name_themselves():
         others[name] = data
     assert {"DDS", "TIFF", "PPM", "ICO", "PCX", "SGI", "PSD"} <= set(others)
     for name, data in others.items():
+        if name in ("DDS", "PPM", "ICO", "QOI"):     # decoded since
+            np.testing.assert_array_equal(_decode_image(data, name).data,
+                                          pil_rgba(data))
+            continue
         with pytest.raises(ValueError, match=re.escape(name)):
             _decode_image(data, name)
     with pytest.raises(ValueError, match="not an image"):
