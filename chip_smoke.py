@@ -277,6 +277,24 @@ Phases, each printing its own lines:
      64 with a shadow-casting sun: the raycast kernel launched once and
      no other, its planes equal to its plain version; B5's device,
      wrapper and plain ms and its bound on the run's data;
+ 31e. the TIFF decoder without PIL (assets/tiff.py over
+     native/tiff_decode.cpp): every fmt3_* file of
+     tests/goldens/torch_images.npz decoded on the host equal to PIL's
+     RGBA byte for byte; a 1024 x 1024 RGBA LZW TIFF with the horizontal
+     predictor in strips and a 1024 x 1024 16-bit RGB Deflate TIFF in
+     256^2 tiles under planar configuration 2 built here
+     (big_tiff_files, np.random.default_rng(20)), each held to the
+     SHA-256 of its bytes and of PIL's RGBA, their decode ms; an OBJ +
+     MTL with an LZW RGBA TIFF with predictor 2, a .glb cube with a tiled
+     Deflate TIFF in its binary chunk, a .gltf quad with a PackBits 4-bit
+     palette TIFF data URI, an OBJ + MTL with a 16-bit associated-alpha
+     TIFF under planar configuration 2 and an OBJ + MTL with a MinIsWhite
+     grey TIFF at Orientation 6 imported (textures equal to the goldens),
+     bake_assets_blas, and the scene rendered by render_views_blas at
+     1024 worlds x 4 views of 64 x 64 with a shadow-casting sun: the
+     raycast kernel launched once and no other, its planes equal to its
+     plain version; B5's device, wrapper and plain ms and its bound on
+     the run's data;
  32. examples/torch_train_ppo_pixels.py at its defaults (256 worlds, 16 x
      16 RGBD, horizon 16, two epochs): 5 updates on the dense tier
      (tlas_max_instances=8) and 2 on the BLAS tier; B1, B2, B3 and B5
@@ -293,7 +311,8 @@ Phases, each printing its own lines:
      state) and resumed in a fresh make_train for 2 more, bit-identical
      to 4 straight updates; no kernel launched by the learner.
      The JSON line's rows carry "launches_by_path": each kernel's
-     launches on the paths of phases 27-29, 31, 31b, 31c, 31d and 32,
+     launches on the paths of phases 27-29, 31, 31b, 31c, 31d, 31e and
+     32,
      B6's and B7's from the record kernel's tier counts.
  34. tracing and debug checks (utils/tracing.py, utils/debug.py) on
      Escape Room at 4096 worlds: 5 steps under profile_trace, each
@@ -3479,6 +3498,344 @@ def big_dds_files(side=1024):
         dxgi=dxgi) for name, (dxgi, block) in BIG_DDS.items()}
 
 
+def lzw_bytes(data, old=False):
+    """TIFF LZW of ``data`` as libtiff's encoder writes it: a clear code,
+    9- to 12-bit codes most significant bit first, each width growing one
+    code early, a clear code where the table reaches 4094, the end code
+    last. ``old``: the old-style codes libtiff still reads (least
+    significant bit first, each width growing at 2^n)."""
+    out = bytearray()
+    late = 1 if old else 0
+    # codes and their widths first, packed into bits below
+    codes, widths = [256], [9]
+    nbits, free, limit, table, w = 9, 258, 511 + late, {}, -1
+    get = table.get
+    for c in data:
+        if w < 0:
+            w = c
+            continue
+        k = (w << 8) | c
+        nxt = get(k)
+        if nxt is not None:
+            w = nxt
+            continue
+        codes.append(w)
+        widths.append(nbits)
+        table[k] = free
+        w = c
+        free += 1
+        if free == 4094:
+            codes.append(256)
+            widths.append(nbits)
+            table.clear()
+            nbits, free, limit = 9, 258, 511 + late
+        elif free > limit:
+            nbits += 1
+            limit = (1 << nbits) - 1 + late
+    if w >= 0:
+        codes.append(w)
+        widths.append(nbits)
+        free += 1
+        if free == 4094:
+            codes.append(256)
+            widths.append(nbits)
+            nbits = 9
+        elif free > limit:
+            nbits += 1
+    codes.append(257)
+    widths.append(nbits)
+    # each code's bits, in order of significance, then bytes
+    c = np.asarray(codes, np.uint32)
+    wd = np.asarray(widths, np.int64)
+    k = np.arange(12)
+    if old:
+        bits = (c[:, None] >> k) & 1                       # LSB first
+    else:
+        bits = (c[:, None] >> (wd[:, None] - 1 - k).clip(0)) & 1
+    stream = bits[k[None, :] < wd[:, None]].astype(np.uint8)
+    out = np.packbits(stream, bitorder="little" if old else "big")
+    return out.tobytes()
+
+
+def packbits_bytes(data):
+    """PackBits of ``data``: runs of 2 to 128 equal bytes, literals of up
+    to 128 bytes between them."""
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        j = i + 1
+        while j < n and j - i < 128 and data[j] == data[i]:
+            j += 1
+        if j - i >= 2:
+            out += bytes((257 - (j - i), data[i]))
+            i = j
+            continue
+        j = i + 1
+        while j < n and j - i < 128 and not (
+                j + 2 < n and data[j] == data[j + 1] == data[j + 2]):
+            j += 1
+        out.append(j - i - 1)
+        out += data[i:j]
+        i = j
+    return bytes(out)
+
+
+# TIFF field types: struct code of one value
+TIFF_TYPES = {1: "B", 2: "s", 3: "H", 4: "L", 6: "b", 7: "B", 8: "h",
+              9: "l", 11: "f", 12: "d", 16: "Q"}
+
+
+def tiff_rows(px, bits, end, fmt=1):
+    """[r, n] uint8 rows of samples ``px`` [r, w, s] at ``bits`` bits
+    (sample format ``fmt``: 1 unsigned, 2 signed, 3 float), in byte
+    order ``end``; rows under 8 bits packed most significant first."""
+    r, w, s = px.shape
+    if bits < 8:
+        v = px.reshape(r, w * s).astype(np.uint8)
+        per = 8 // bits
+        v = np.pad(v, ((0, 0), (0, -(w * s) % per))).reshape(r, -1, per)
+        shifts = np.arange(8 - bits, -1, -bits, dtype=np.uint8)
+        return (v << shifts).sum(-1, dtype=np.uint8)
+    if bits == 12:
+        v = px.reshape(r, w * s).astype(np.uint16)
+        v = np.pad(v, ((0, 0), (0, (w * s) % 2))).reshape(r, -1, 2)
+        b = np.stack([v[..., 0] >> 4, ((v[..., 0] & 15) << 4) | (v[..., 1] >> 8),
+                      v[..., 1] & 255], -1).reshape(r, -1)
+        return b[:, :(w * s * 12 + 7) // 8].astype(np.uint8)
+    kind = {1: "u", 2: "i", 3: "f"}[fmt]
+    dt = np.dtype(f"{end}{kind}{bits // 8}")
+    return np.ascontiguousarray(px.astype(dt)).view(np.uint8).reshape(r, -1)
+
+
+def _predict(px, bits, end, fmt, predictor, stride):
+    """Rows of ``px`` [r, w, s] as bytes with ``predictor`` applied (2:
+    each sample less the one ``stride`` before it, wrapping; 3: each
+    float's bytes, most significant first, in planes, less the byte
+    ``stride`` before)."""
+    if predictor == 2:
+        if bits not in (8, 16, 32):        # libtiff refuses it; write it
+            return tiff_rows(px, bits, end, fmt)
+        kind = "f" if fmt == 3 else "u"
+        v = px.astype(f"{kind}{bits // 8}").view(f"u{bits // 8}").reshape(
+            len(px), -1).copy()
+        v[:, stride:] = v[:, stride:] - v[:, :-stride]
+        return tiff_rows(v.reshape(px.shape), bits, end)
+    if predictor == 3:
+        r = len(px)
+        b = np.ascontiguousarray(px.astype(f">f{bits // 8}")).view(
+            np.uint8).reshape(r, -1, bits // 8)
+        b = np.ascontiguousarray(b.transpose(0, 2, 1)).reshape(r, -1)
+        b[:, stride:] = b[:, stride:] - b[:, :-stride]
+        return b
+    return tiff_rows(px, bits, end, fmt)
+
+
+def tiff_bytes(px, *, end="<", big=False, **first):
+    """A TIFF in byte order ``end`` ("<" or ">"), a BigTIFF where
+    ``big``, of one image, whose keyword arguments are: samples ``px``
+    [h, w, s] (ints, or floats with ``fmt`` 3); ``bits`` a sample (8),
+    PhotometricInterpretation ``photo`` (2); strips of ``rows`` rows (all
+    rows where None) or ``tile`` = (width, length) tiles padded with
+    zeros; planar configuration ``planar`` (1); compression 1 (none), 5
+    (LZW; ``old_lzw`` for the old-style codes), 8 or 32946 (Deflate) or
+    32773 (PackBits) after ``predictor`` 1, 2 or 3; FillOrder ``fill``
+    (2 reverses the bits of the stored bytes); SampleFormat ``fmt``,
+    ExtraSamples ``extra``, ColorMap ``colormap``, Orientation
+    ``orientation`` where given; ``tags`` {tag: (type, values)} added or
+    replacing, ``drop`` tags left out, ``types`` {tag: type} for the
+    written ones; the IFD before the data where ``ifd_first``; ``then``
+    the keyword arguments (with ``px``) of a second image in a second
+    IFD."""
+    import struct
+    import zlib
+
+    out = bytearray(b"II" if end == "<" else b"MM")
+    out += struct.pack(end + "HHHQ", 43, 8, 0, 0) if big else struct.pack(
+        end + "HL", 42, 0)
+    link = 8 if big else 4
+
+    def add(px, bits=8, photo=2, compression=1, predictor=1, rows=None,
+              tile=None, planar=1, fill=1, fmt=1, extra=None, colormap=None,
+              orientation=None, old_lzw=False, tags=None, drop=(),
+              types=None, then=None, ifd_first=False):
+        nonlocal link
+        px = np.asarray(px)
+        h, w, s = px.shape
+        planes = [px[..., p:p + 1] for p in range(s)] if planar == 2 else [px]
+        chunks = []
+        for plane in planes:
+            if tile is None:
+                step = rows or h
+                parts = [plane[y:y + step] for y in range(0, h, step)]
+            else:
+                tw, tl = tile
+                parts = []
+                for y in range(0, h, tl):
+                    for x in range(0, w, tw):
+                        t = np.zeros((tl, tw, plane.shape[2]), plane.dtype)
+                        part = plane[y:y + tl, x:x + tw]
+                        t[:part.shape[0], :part.shape[1]] = part
+                        parts.append(t)
+            for part in parts:
+                raw = _predict(part, bits, end, fmt, predictor,
+                               part.shape[2]).tobytes()
+                if compression == 5:
+                    raw = lzw_bytes(raw, old_lzw)
+                elif compression in (8, 32946):
+                    raw = zlib.compress(raw)
+                elif compression == 32773:
+                    raw = packbits_bytes(raw)
+                if fill == 2:
+                    raw = bytes(int(f"{b:08b}"[::-1], 2) for b in raw)
+                chunks.append(raw)
+        off_type = 16 if big else 4
+        entries = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * s),
+                   259: (3, [compression]), 262: (3, [photo]),
+                   277: (3, [s]), 284: (3, [planar])}
+        if tile is None:
+            entries[278] = (4, [rows or h])
+            offs, counts = 273, 279
+        else:
+            entries[322], entries[323] = (4, [tile[0]]), (4, [tile[1]])
+            offs, counts = 324, 325
+        if predictor != 1:
+            entries[317] = (3, [predictor])
+        if fill != 1:
+            entries[266] = (3, [fill])
+        if fmt != 1:
+            entries[339] = (3, [fmt] * s)
+        if extra is not None:
+            entries[338] = (3, list(extra))
+        if colormap is not None:
+            entries[320] = (3, list(colormap))
+        if orientation is not None:
+            entries[274] = (3, [orientation])
+        entries.update(tags or {})
+        for t, typ in (types or {}).items():
+            if t in entries:
+                entries[t] = (typ, entries[t][1])
+        for t in drop:
+            entries.pop(t, None)
+        ifd_size = ((8 + 20 * (len(entries) + 2) + 8) if big
+                    else (2 + 12 * (len(entries) + 2) + 4))
+        ifd_at = None
+        if ifd_first:
+            ifd_at = len(out)
+            out.extend(bytes(ifd_size))
+        starts = []
+        for raw in chunks:
+            starts.append(len(out))
+            out.extend(raw)
+            if len(out) % 2:
+                out.append(0)
+        if offs not in drop:
+            entries[offs] = (entries.get(offs, (off_type,))[0], starts)
+        if counts not in drop:
+            entries[counts] = (entries.get(counts, (off_type,))[0],
+                               [len(c) for c in chunks])
+        for t, typ in (types or {}).items():
+            entries[t] = (typ, entries[t][1])
+        fields = []
+        room = 8 if big else 4
+        for t in sorted(entries):
+            typ, vals = entries[t]
+            code = TIFF_TYPES[typ]
+            if typ == 2:
+                blob = vals if isinstance(vals, bytes) else bytes(vals)
+                n = len(blob)
+            elif typ in (1, 7) and isinstance(vals, bytes):
+                blob, n = vals, len(vals)
+            else:
+                blob = struct.pack(end + f"{len(vals)}{code}", *vals)
+                n = len(vals)
+            if len(blob) > room:
+                at = len(out)
+                out.extend(blob)
+                if len(out) % 2:
+                    out.append(0)
+                blob = struct.pack(end + ("Q" if big else "L"), at)
+            fields.append((t, typ, n, blob.ljust(room, b"\0")))
+        if ifd_at is None:
+            ifd_at = len(out)
+            out.extend(bytes(ifd_size))
+        body = struct.pack(end + ("Q" if big else "H"), len(fields))
+        for t, typ, n, blob in fields:
+            body += struct.pack(end + ("HHQ" if big else "HHL"), t, typ,
+                                n) + blob
+        next_at = ifd_at + len(body)
+        body += bytes(8 if big else 4)
+        out[ifd_at:ifd_at + len(body)] = body
+        struct.pack_into(end + ("Q" if big else "L"), out, link, ifd_at)
+        link = next_at
+        if then is not None:
+            add(**then)
+
+    add(px, **first)
+    return bytes(out)
+
+
+# phase 31e's 1024^2 files
+BIG_TIFF = ("fmt3_big_lzw_rgba", "fmt3_big_deflate16")
+
+
+@functools.lru_cache(maxsize=1)
+def big_tiff_files(side=1024):
+    """{name: TIFF bytes} of BIG_TIFF, built without PIL from
+    np.random.default_rng(20): waves and noise as RGBA in LZW with the
+    horizontal predictor in 16-row strips, and as 16-bit RGB in Deflate,
+    256^2 tiles under planar configuration 2 (the goldens keep the
+    SHA-256 of their bytes and of PIL's RGBA)."""
+    rng = np.random.default_rng(20)
+    yy, xx = np.mgrid[0:side, 0:side].astype(np.float64)
+    waves = np.stack([128 + 100 * np.sin(xx / 37 + yy / 53),
+                      128 + 90 * np.cos(yy / 29 - xx / 61),
+                      (xx * 3 + yy * 5) % 256, 255 - (xx + yy) / 8 % 256], -1)
+    rgba = np.clip(waves + rng.integers(-2, 3, waves.shape), 0,
+                   255).astype(np.uint8)
+    rgb16 = (waves[..., :3] * 256
+             + rng.integers(0, 256, (side, side, 3))).astype(np.uint16)
+    return {BIG_TIFF[0]: tiff_bytes(rgba, extra=[2], compression=5,
+                                    predictor=2, rows=16),
+            BIG_TIFF[1]: tiff_bytes(rgb16, bits=16, compression=8,
+                                    tile=(256, 256), planar=2)}
+
+
+FORMAT3_SCENE = ("lzw_obj", "tiles_glb", "p4_gltf", "rgba16_obj",
+                 "o6_obj")
+FORMAT3_TEXTURES = {"lzw_obj": "fmt3_lzw_rgba",
+                    "tiles_glb": "fmt3_deflate_tiles",
+                    "p4_gltf": "fmt3_packbits_p4",
+                    "rgba16_obj": "fmt3_rgba16_planar",
+                    "o6_obj": "fmt3_miniswhite_o6"}
+
+
+def write_format3_assets(d, files):
+    """Phase 31e's files in directory ``d``, textured with the golden
+    TIFFs ``files[FORMAT3_TEXTURES[k]]``: a ground grid OBJ + MTL with an
+    RGBA LZW file with the horizontal predictor, a .glb cube with a tiled
+    Deflate file in its binary chunk, a .gltf quad with a PackBits 4-bit
+    palette file as a data URI, and cube OBJs with a 16-bit associated
+    alpha file under planar configuration 2 and a MinIsWhite grey file at
+    Orientation 6. Returns {FORMAT3_SCENE name: path}."""
+    tex = {k: files[v] for k, v in FORMAT3_TEXTURES.items()}
+    pos, tris, _ = _grid_mesh(10, 4.0)
+    cpos, ctris, _ = _cube()
+    return {
+        "lzw_obj": _write_obj(os.path.join(d, "yard.obj"), pos, tris,
+                              "yard", "yard.tif", tex["lzw_obj"],
+                              "0.8 0.9 0.8"),
+        "tiles_glb": write_glb_cube(os.path.join(d, "crate.glb"), "crate",
+                                    tex["tiles_glb"], "image/tiff"),
+        "p4_gltf": write_gltf_quad(os.path.join(d, "sign.gltf"), "sign",
+                                   tex["p4_gltf"], "image/tiff"),
+        "rgba16_obj": _write_obj(os.path.join(d, "post.obj"), cpos * 0.5,
+                                 ctris, "post", "post.tiff",
+                                 tex["rgba16_obj"], "1 1 1"),
+        "o6_obj": _write_obj(os.path.join(d, "stone.obj"), cpos * 0.4,
+                             ctris, "stone", "stone.tif", tex["o6_obj"],
+                             "0.9 0.9 1"),
+    }
+
+
 FORMAT2_SCENE = ("bc1_obj", "bc7_glb", "qoi_gltf", "bc3_obj", "ppm_obj")
 FORMAT2_TEXTURES = {"bc1_obj": "fmt2_dds_bc1_alpha",
                     "bc7_glb": "fmt2_dds_bc7_mips", "qoi_gltf": "fmt2_qoi",
@@ -3721,9 +4078,10 @@ def check_assets(kernels, card):
 
 
 def golden_group(name):
-    """The phase whose goldens hold ``name``: "fmt2_" (31d), "fmt_" (31c)
-    or "" (31b)."""
-    return next((p for p in ("fmt2_", "fmt_") if name.startswith(p)), "")
+    """The phase whose goldens hold ``name``: "fmt3_" (31e), "fmt2_"
+    (31d), "fmt_" (31c) or "" (31b)."""
+    return next((p for p in ("fmt3_", "fmt2_", "fmt_")
+                 if name.startswith(p)), "")
 
 
 def check_golden_decodes(group, label, card, built=None):
@@ -3907,6 +4265,34 @@ def check_format2_assets(kernels, card):
         "alpha, .glb with a BC7 DDS with mips, .gltf with a QOI, OBJ + MTL "
         "with a 30 x 18 BC3 DDS and with a P6 PPM at maxval 1023", parts,
         kernels, card, 3, (-0.4, 0.3, -1.0))
+
+
+def check_format3_assets(kernels, card):
+    """Phase 31e. The TIFF goldens and the two 1024^2 TIFFs built here
+    decoded on the host by the port's decoder, equal to PIL's bytes; the
+    scene textured with them imported, baked and rendered through B5.
+    Returns (launches a counter, B5's largest difference from its plain
+    version)."""
+    import tempfile
+
+    from madrona_tpu_torch.assets.importer import import_assets
+
+    files, rgba = check_golden_decodes("fmt3_", "image formats 3", card,
+                                       big_tiff_files())
+    with tempfile.TemporaryDirectory() as d:
+        paths = write_format3_assets(d, files)
+        parts = [import_assets(paths[k]) for k in FORMAT3_SCENE]
+    for k, part in zip(FORMAT3_SCENE, parts):
+        if not np.array_equal(part.textures[0].data,
+                              rgba[FORMAT3_TEXTURES[k]]):
+            raise AssertionError(f"image formats 3: the {k} texture != "
+                                 "PIL's")
+    return render_imported(
+        "image formats 3", "OBJ + MTL with an LZW RGBA TIFF with predictor "
+        "2, .glb with a tiled Deflate TIFF, .gltf with a PackBits 4-bit "
+        "palette TIFF, OBJ + MTL with a 16-bit associated-alpha planar TIFF "
+        "and with a MinIsWhite TIFF at Orientation 6", parts, kernels, card,
+        4, (0.2, 0.4, -1.0))
 
 
 def check_ppo_pixels(ppo_px, kernels, b_kernels, card):
@@ -5462,6 +5848,15 @@ def main() -> int:
     later["image_formats_2"], format2_err = check_format2_assets(all_k, card)
     asset_err = max(asset_err, format2_err)
     print(f"phase 31d: {time.perf_counter() - t0:.1f} s ({card})")
+
+    lap("31e")
+    # ---- 31e: TIFF textures decoded without PIL, imported and rendered
+    # through B5
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    later["image_formats_3"], format3_err = check_format3_assets(all_k, card)
+    asset_err = max(asset_err, format3_err)
+    print(f"phase 31e: {time.perf_counter() - t0:.1f} s ({card})")
 
     lap("32")
     # ---- 32: the pixel learner at its defaults on both render tiers

@@ -16,12 +16,13 @@ first frame (:func:`.gif.decode_gif`), WebP's first frame
 PBM, PGM, PPM and PFM (:func:`.ppm.decode_ppm`), QOI
 (:func:`.qoi.decode_qoi`), ICO and CUR (:func:`.ico.decode_ico`,
 :func:`.ico.decode_cur`; tried, as Pillow tries them, before TGA, where a
-whole directory lets Pillow take the file) and, where no other format
-takes the file, TGA by its header checks (:func:`.tga.decode_tga`); see
-those modules for the variants each refuses. The other formats Pillow
-opens (TIFF, PSD, SGI, PCX, AVIF, JPEG 2000, ...) raise ``ValueError``
-naming the format as Pillow identifies it; a TGA header that PCX's weak
-test also takes is read as TGA.
+whole directory lets Pillow take the file), TIFF's first image
+(:func:`.tiff.decode_tiff`) and, where no other format takes the file,
+TGA by its header checks (:func:`.tga.decode_tga`); see those modules
+for the variants each refuses. The other formats Pillow opens (PSD, SGI,
+PCX, AVIF, JPEG 2000, ...) raise ``ValueError`` naming the format as
+Pillow identifies it; a TGA header that PCX's weak test also takes is
+read as TGA.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from typing import List
 
 import numpy as np
 
-from . import bmp, dds, gif, ico, ppm, qoi, tga, webp
+from . import bmp, dds, gif, ico, ppm, qoi, tga, tiff, webp
 from .jpeg import MAGIC as JPEG_MAGIC
 from .jpeg import decode_jpeg
 from .png import SIGNATURE as PNG_SIGNATURE
@@ -113,9 +114,7 @@ _FORMATS = (
     ("ICO", ico.accept_ico, ico.decode_ico),
     ("IM", lambda d: d[:11] == b"Image type:", None),
     ("MPEG", lambda d: d[:4] == b"\x00\x00\x01\xb3", None),
-    ("TIFF", lambda d: d[:4] in (b"MM\x00\x2a", b"II\x2a\x00",
-                                 b"MM\x2a\x00", b"II\x00\x2a",
-                                 b"MM\x00\x2b", b"II\x2b\x00"), None),
+    ("TIFF", tiff.accept, tiff.decode_tiff),
     ("MSP", lambda d: d[:4] in (b"DanM", b"LinS"), None),
     ("PIXAR", lambda d: d[:4] == b"\x80\xe8\x00\x00", None),
     ("PSD", lambda d: d[:4] == b"8BPS", None),
@@ -135,7 +134,7 @@ _FORMATS_AFTER_TGA = (
      and d[1] in (0, 2, 3, 5), None),
 )
 _DECODED = ("PNG, JPEG, BMP, TGA, GIF, WebP, DDS, PBM/PGM/PPM/PFM, QOI, "
-            "ICO and CUR are")
+            "ICO, CUR and TIFF are")
 
 
 def _decode_as(data, name, table):

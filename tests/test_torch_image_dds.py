@@ -249,7 +249,8 @@ def test_refused_variants_name_themselves():
             _decode_image(data, what)
         assert "DDS" in str(err.value)
     img = seeded(16, 16, 3, 0)
-    others = {"TIFF": pil_file(img, "TIFF"), "PCX": pil_file(img, "PCX"),
+    others = {"TIFF": pil_file(img, "TIFF", compression="jpeg"),
+              "PCX": pil_file(img, "PCX"),
               "SGI": pil_file(img, "SGI"), "IM": pil_file(img, "IM"),
               "JPEG2000": pil_file(img, "JPEG2000"),
               "PSD": (b"8BPS" + struct.pack(">H6xHIIHH", 1, 3, 16, 16, 8, 3)

@@ -1137,7 +1137,8 @@ def test_refused_variants_name_themselves():
     """Variants Pillow refuses raise ValueError naming them in the port
     too; formats Pillow opens that the port does not decode raise
     ValueError naming the format as Pillow identifies it (PIL's DDS, PPM,
-    ICO and QOI files, which the port now decodes, equal PIL's RGBA)."""
+    ICO, QOI and uncompressed TIFF files, which the port now decodes, equal
+    PIL's RGBA; a JPEG-compressed TIFF still raises naming TIFF)."""
     rs = np.random.RandomState(6)
     idx = rs.randint(0, 4, (3, 5))
     bad = {
@@ -1190,12 +1191,15 @@ def test_refused_variants_name_themselves():
         others[name] = data
     assert {"DDS", "TIFF", "PPM", "ICO", "PCX", "SGI", "PSD"} <= set(others)
     for name, data in others.items():
-        if name in ("DDS", "PPM", "ICO", "QOI"):     # decoded since
+        if name in ("DDS", "PPM", "ICO", "QOI", "TIFF"):   # decoded since
             np.testing.assert_array_equal(_decode_image(data, name).data,
                                           pil_rgba(data))
             continue
         with pytest.raises(ValueError, match=re.escape(name)):
             _decode_image(data, name)
+    # a TIFF variant the port still refuses names TIFF
+    with pytest.raises(ValueError, match="TIFF"):
+        _decode_image(pil_file(img, "TIFF", compression="jpeg"), "TIFF")
     with pytest.raises(ValueError, match="not an image"):
         _decode_image(b"\x00" * 40, "zeros")
 
